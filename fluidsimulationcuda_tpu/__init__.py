@@ -1,6 +1,6 @@
-"""fluidsimulationcuda_tpu — a TPU-native stable-fluids simulation framework.
+"""fluidsimulationcuda_tpu — a stable-fluids simulation framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 ArbiterMob/FluidSimulationCuda (Jos Stam's *Stable Fluids* solver plus a
 comparative parallelization study).  The reference's 19 standalone CUDA/C
 programs collapse here into one engine:
@@ -8,9 +8,9 @@ programs collapse here into one engine:
 - ``core``      — ``SimConfig`` / ``FluidState`` pytrees (reference L0 + config)
 - ``oracle``    — NumPy ground-truth transcription of the sequential solver
 - ``ops``       — the five core operators in pure jnp (reference backend)
-- ``kernels``   — fused Pallas TPU kernels (performance backend)
+- ``kernels``   — backend dispatch and the fused CUDA Jacobi kernel (Hopper)
 - ``models``    — step composition: 2-D flagship, batched datagen, 3-D smoke
-- ``parallel``  — multi-chip spatial decomposition (shard_map + halo exchange)
+- ``parallel``  — multi-device spatial decomposition (shard_map + halo exchange)
 - ``utils``     — timing, checkpointing, profiling
 """
 

@@ -4,9 +4,9 @@ The reference scatters configuration across three tiers: compile-time macros
 (``N/DT/VIS/DIFF``, ``project/sequential/FluidSequential.c:6-10``), CLI block
 dims (``project/naivePar/FluidParallelBlockPerElement-Naive.cu:345-359``), and
 a device-side ``__constant__`` mirror uploaded via ``cudaMemcpyToSymbol``
-(``...:11-14,386-389``).  On TPU all of that collapses into one frozen
-dataclass passed as a static argument to ``jax.jit`` — the compiled HLO *is*
-the constant-folded configuration.
+(``...:11-14,386-389``).  Here all of that collapses into one frozen
+dataclass passed as a static argument to ``jax.jit`` — the compiled program
+*is* the constant-folded configuration.
 """
 from __future__ import annotations
 
@@ -36,18 +36,15 @@ class SimConfig:
         every reported number states it.
       dtype: element type of the state grids.  The reference is float32
         throughout (``document/main.tex:345-350``); bfloat16 is supported as
-        a STORAGE format (halves HBM footprint and snapshot IO; kernels
-        still compute f32 in VMEM, so throughput is unchanged on the
-        f32-native VPU — measured in docs/PERFORMANCE.md).  Non-parity:
-        fields round to bf16 at every HBM round-trip.  Requires
-        ``(n+2) %% 16 == 0`` on the pallas backend.
-      backend: which compute path executes the hot ops —
-        ``"reference"``: pure jnp/XLA ops (the differential-testing oracle
-        for the kernels), ``"pallas"``: fused Pallas TPU kernels,
-        ``"auto"``: pallas on TPU, reference elsewhere.
-      fuse_sweeps: how many Jacobi sweeps the Pallas kernel performs per
-        HBM round-trip (halo depth of the VMEM tiles).  0 = auto-tune from
-        ``n`` and ``jacobi_iters``.
+        a STORAGE format on the plain XLA path (halves the memory footprint
+        and snapshot IO).  Non-parity: fields round to bf16 between ops.
+      backend: which compute path executes the Jacobi solves —
+        ``"reference"``: plain jnp/XLA ops (the oracle for the kernel),
+        ``"hopper"``: the fused CUDA Jacobi kernel
+        (``kernels/hopper_jacobi.py``; float32 2-D grids on an NVIDIA
+        Hopper GPU, raises elsewhere), ``"auto"``: hopper where it
+        qualifies, reference otherwise (``kernels.dispatch.resolve_backend``
+        says which and why).
       pressure_solver: "jacobi" (reference-parity, ``jacobi_iters`` sweeps),
         "multigrid" (``mg_cycles`` V-cycles — the reference's own stated
         future work, ``document/main.tex:356``; mesh-independent convergence,
@@ -63,57 +60,36 @@ class SimConfig:
         solves; validated by per-solve residual <= the Jacobi-20 solve's,
         see bench.py's perf-mode line), or "chebyshev-dens" (accelerated
         sweeps for the DENSITY solve only — the velocity trajectory stays
-        bit-identical to parity, so unlike the full swap the divergence
-        bar is untouched by construction and only the density-solve
-        residual bar applies; ``dev/bench_r3p_denscheby.py``).  Measured
-        operating points for the full swap (it must be COMPENSATED by a
-        chebyshev pressure solve, see ``cheby_press_iters``): 2-D
-        (rho=0.9, k_d=10, k_p=14) — bench.py's default perf mode; 3-D
-        (rho=0.85, k_d=10, k_p=12).  The 2-D point FAILS the 3-D
-        velocity residual bar, rho/k_d are brittle
-        (``dev/bench_r3s_3dcomp.py``), and k_p is size-coupled — k_p=8
-        passes every bar at 128³ yet fails the 256³ divergence bar by
-        5% (``dev/bench_r3s2_3dcomp_256.py``) — so use the measured
-        points, not intuition.
+        bit-identical to parity, so the divergence bar is untouched by
+        construction and only the density-solve residual bar applies).
+        The full swap must be COMPENSATED by a chebyshev pressure solve
+        (``cheby_press_iters``); the operating points below pass every
+        bar at the sizes they were probed at, and a point that passes in
+        2-D can fail in 3-D, so use the table, not intuition.
       mg_cycles: V-cycles per pressure solve in multigrid mode.
       cg_iters: CG iterations per pressure solve in cg mode.
-      cheby_iters: sweeps per solve in chebyshev modes.  Default 8:
-        the fewest sweeps that pass the perf-mode divergence bar with
-        margin on BOTH the decay and continuous-forcing trajectories
-        (decay 0.73x bar, forcing 0.69x; k=6 passes at 0.85x, k=4
-        fails — ``dev/bench_r3m_cheby.py`` / bench.py validates live).
+      cheby_iters: sweeps per solve in chebyshev modes.  Default 8: the
+        fewest sweeps that passed the perf-mode divergence bar with margin
+        on both the decay and the continuous-forcing trajectories.
       cheby_press_iters: pressure-solve sweep count in "chebyshev"
         pressure mode; 0 (default) follows ``cheby_iters``.  Decoupling
         exists so the pressure solve can COMPENSATE a diffusion-solver
         swap: the velocity-diffusion swap injects mid-frequency content
-        that fails the divergence bar at equal sweeps (the adversarial
-        frontier, ``dev/bench_r3n_frontier.py``), but extra pressure
-        sweeps remove exactly that content — see
-        ``dev/bench_r3q_compensated.py`` for the measured joint frontier.
+        that fails the divergence bar at equal sweeps, and extra pressure
+        sweeps remove exactly that content.
       cheby_rho: Chebyshev interval parameter — a free tuning knob, NOT a
         stability bound (|P_k| <= 1 on [-1, 1] for any value in (0, 1);
-        ``ops/chebyshev.py``).  0.99 measured best-or-near across all five
-        solves at 2048².
+        ``ops/chebyshev.py``).
       cheby_dens_iters: sweeps for the density solve in "chebyshev-dens"
-        mode.  Default 10: passes the density residual bar at 0.77x on the
-        continuous-forcing trajectory (k=8 passes at 0.97x — no margin;
-        ``dev/bench_r3p_denscheby.py``).  The full "chebyshev" mode keeps
-        ``cheby_iters`` for all solves.
-      fast_math: Pallas Jacobi rewrites ``(rhs + a*neigh)/beta`` as
-        ``rhs/beta + (a/beta)*neigh`` (reciprocal precomputed once per
-        solve): ~15-20%% fewer VPU ops, numerics differ by ~1 ulp/sweep from
-        the reference expression (off by default to keep oracle parity).
-      advect_mode: gather strategy for the reference (jnp) backend —
-        "exact" uses the XLA gather (arbitrary displacement; serialized and
-        slow on TPU), "windowed" uses the masked-shift window (TPU-fast,
-        vmappable; clamped to ``max_courant`` cells).  "auto": exact off-TPU,
-        windowed on TPU.  The pallas backend is always windowed.
-      max_courant: Pallas advection gathers from a VMEM window of
-        ``max_courant`` cells around each output cell; exact while the
-        backtrace displacement ``|dt*n*velocity|`` stays below
-        ``max_courant`` cells (proof + boundary test:
+        mode.  Default 10: passed the density residual bar with margin on
+        the continuous-forcing trajectory.  The full "chebyshev" mode
+        keeps ``cheby_iters`` for all solves.
+      max_courant: window half-width (cells) of the sharded steps'
+        windowed advection (``parallel/sharded*.py``), which bounds their
+        halo depth; exact while the backtrace displacement
+        ``|dt*n*velocity|`` stays below it (proof + boundary test:
         ``ops/advect.py:advect_windowed``), clamped to the window
-        otherwise.  Cost grows quadratically with the window.
+        otherwise.  Single-device steps always use the exact gather.
       ndim: spatial dimensionality (2 for the reference solver, 3 for the
         smoke-volume extension).
     """
@@ -125,7 +101,6 @@ class SimConfig:
     jacobi_iters: int = 20
     dtype: jnp.dtype = jnp.float32
     backend: str = "auto"
-    fuse_sweeps: int = 0
     max_courant: int = 4
     pressure_solver: str = "jacobi"
     diffusion_solver: str = "jacobi"
@@ -135,8 +110,6 @@ class SimConfig:
     cheby_press_iters: int = 0
     cheby_rho: float = 0.99
     cheby_dens_iters: int = 10
-    advect_mode: str = "auto"
-    fast_math: bool = False
     ndim: int = 2
 
     def __post_init__(self):
@@ -144,7 +117,7 @@ class SimConfig:
             raise ValueError(f"n must be >= 2, got {self.n}")
         if self.jacobi_iters < 1:
             raise ValueError("jacobi_iters must be >= 1")
-        if self.backend not in ("reference", "pallas", "auto"):
+        if self.backend not in ("reference", "hopper", "auto"):
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.pressure_solver not in ("jacobi", "multigrid", "cg",
                                         "chebyshev"):
@@ -162,8 +135,6 @@ class SimConfig:
                              "cheby_iters) or >= 2")
         if self.cheby_dens_iters < 2:
             raise ValueError("cheby_dens_iters must be >= 2")
-        if self.advect_mode not in ("auto", "exact", "windowed"):
-            raise ValueError(f"unknown advect_mode {self.advect_mode!r}")
         if self.ndim not in (2, 3):
             raise ValueError("ndim must be 2 or 3")
         if self.ndim == 3 and self.pressure_solver not in ("jacobi",
@@ -176,15 +147,12 @@ class SimConfig:
             )
         if (self.ndim == 3 and self.diffusion_solver == "chebyshev"
                 and self.pressure_solver != "chebyshev"):
-            # The VELOCITY diffusion swap validates (2-D and 3-D) only
-            # with pressure compensation: the swap's extra mid-frequency
-            # divergence must be absorbed by a raised Chebyshev pressure
-            # sweep count (``cheby_press_iters``; PERFORMANCE.md finding
-            # 15 + the compensated rows; 3-D point measured in
-            # ``dev/bench_r3s_3dcomp.py``).  An uncompensated 3-D swap
-            # (jacobi/mg/cg pressure) has no validated operating point,
-            # so it stays gated off rather than silently mis-reporting
-            # the numerics actually run.
+            # The VELOCITY diffusion swap validates only with pressure
+            # compensation: the swap's extra mid-frequency divergence must
+            # be absorbed by a raised Chebyshev pressure sweep count
+            # (``cheby_press_iters``).  An uncompensated 3-D swap has no
+            # validated operating point, so it stays gated off rather than
+            # silently mis-reporting the numerics actually run.
             raise ValueError(
                 "ndim=3 diffusion_solver='chebyshev' requires "
                 "pressure_solver='chebyshev' (the compensated mode); "
@@ -223,21 +191,16 @@ class SimConfig:
 
 
 # Validated compensated perf-mode operating points, keyed by full grid
-# side (n + 2).  (rho, k_d diffusion sweeps, k_p pressure sweeps) — these
-# are MEASURED, size-coupled points, not defaults:
-#
-# - 2-D 2048²/20it: probed in dev/bench_r3q_compensated.py; all three
-#   bars pass (div 0.44x, forced v-res 0.304, dens 0.913).
-# - 2-D 8192²/40it: re-probed in round 4 (dev/bench_r4a_frontier8k.py +
-#   the forced-twin probes) — the 2048² point FAILS the forced
-#   velocity-residual bar there (1.029); (0.96, 12, 14) passes all bars
-#   (div 0.990x, v-res 0.998).
-# - 3-D 256³/20it: dev/bench_r3s_3dcomp.py — rho=0.9 fails 3-D, 0.85
-#   passes with k_p=12.
+# side (n + 2).  (rho, k_d diffusion sweeps, k_p pressure sweeps) — points
+# that passed the divergence, velocity-residual and density-residual bars
+# against the parity Jacobi solves at these sizes (2-D 2048²/20 iterations,
+# 2-D 8192²/40 iterations, where the 2048² point fails the forced
+# velocity-residual bar, and 3-D 256³/20 iterations).  The bars are
+# numerics, not timings, but the sums run in another order on every
+# device, so bench.py and ``run --perf --validate`` re-run them live.
 #
 # Unprobed sides fall back to the nearest probed point; both bench.py and
-# ``run --perf`` consult THIS table (single source of truth) and both can
-# run the live bars at the requested size to catch a failed transfer.
+# ``run --perf`` consult THIS table (single source of truth).
 PERF_POINTS_2D = {2048: (0.9, 10, 14), 8192: (0.96, 12, 14)}
 PERF_POINT_3D = (0.85, 10, 12)
 

@@ -3,7 +3,7 @@
 The reference's L0 layer is six raw ``float*`` grids —
 ``dens, dens_prev, u, u_prev, v, v_prev`` (``FluidSequential.c:277-282``) —
 where the ``*_prev`` buffers double as (a) per-step external sources and
-(b) scratch for pointer-swap double buffering.  TPU-natively the scratch role
+(b) scratch for pointer-swap double buffering.  Here the scratch role
 disappears (XLA manages buffers; ops are functional), so the state splits
 cleanly into *fields* (carried across steps) and *sources* (per-step inputs).
 """

@@ -4,45 +4,41 @@ The reference maintains five whole *source-tree families* (sequential,
 SIMD-SSE, naivePar, smPar, optPar) that all implement the same five ops; here
 backends are one enum on ``SimConfig`` and every op is selected per-call:
 
-- ``reference``: pure jnp/XLA ops — numerics oracle, runs anywhere.
-- ``pallas``: fused Mosaic TPU kernels (VMEM halo tiling, multi-sweep Jacobi
-  fusion) — the performance path.
-- ``auto``: pallas on TPU when shapes qualify, reference otherwise.
+- ``reference``: plain jnp/XLA ops — runs anywhere; the oracle for the kernel.
+- ``hopper``: the Jacobi and Chebyshev sweeps of the diffusion and pressure
+  solves run in the fused CUDA kernel (``kernels/hopper_jacobi.py``); every
+  other op is the plain XLA one.  Needs an NVIDIA Hopper GPU and float32
+  2-D grids, and raises elsewhere.
+- ``auto``: ``hopper`` where it qualifies, ``reference`` otherwise.
+  :func:`resolve_backend` says which ran and why, and every step builder's
+  function carries both (``.backend`` / ``.backend_reason``): the 2-D,
+  3-D, batched and sharded steps.  The 3-D and sharded steps never take
+  the kernel, so ``hopper`` raises there.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import jax
+import jax.numpy as jnp
 
 from ..core.config import SimConfig
-from ..ops.advect import advect as _advect_ref
-from ..ops.chebyshev import cheby_diffuse as _cheby_diffuse_ref
-from ..ops.chebyshev import cheby_pressure_solve as _cheby_pressure_ref
-from ..ops.diffuse import diffuse as _diffuse_jnp
+from ..ops.advect import advect as _advect
+from ..ops.chebyshev import cheby_diffuse as _cheby_diffuse
+from ..ops.diffuse import diffuse as _diffuse_jacobi
 from ..ops.project import (
-    apply_pressure_gradient as _apg_ref,
-    divergence as _divergence_ref,
-    pressure_solve as _pressure_jnp,
+    apply_pressure_gradient as _apg,
+    divergence as _divergence,
 )
 
-
-def _diffuse_ref(b, x_init, x0, alpha, beta, iters, cheby_rho=None):
-    if cheby_rho is not None:
-        return _cheby_diffuse_ref(b, x_init, x0, alpha, beta, iters,
-                                  cheby_rho)
-    return _diffuse_jnp(b, x_init, x0, alpha, beta, iters)
-
-
-def _pressure_ref(div, iters, cheby_rho=None):
-    if cheby_rho is not None:
-        return _cheby_pressure_ref(div, iters, cheby_rho)
-    return _pressure_jnp(div, iters)
+__all__ = ["OpSet", "get_ops", "resolve_backend", "reference_ops", "kernel_ops"]
 
 
 class OpSet(NamedTuple):
-    """The five-op compute surface (reference §2.2) plus a fused pair
-    advection (same velocity, shared backtrace) for the u/v self-advection."""
+    """The five-op compute surface (reference §2.2) plus the compositions
+    the step uses: the u/v pair advection (same velocity, shared
+    backtrace), the whole projection, and a diffusion with its source
+    added to the rhs."""
 
     diffuse: Callable
     advect: Callable
@@ -52,101 +48,103 @@ class OpSet(NamedTuple):
     advect_pair: Callable
     project: Callable
     diffuse_src: Callable
-    # Optional cross-op fusion: the whole density pair
-    # diffuse_src -> advect (``FluidSequential.c:176-186``) in one kernel.
-    # None = compose the two ops (reference backend, unsupported shapes).
-    diffuse_advect: Callable | None = None
-    # NOTE: there is deliberately NO advect_project hook.  A fused
-    # self-advect + second-projection kernel exists
-    # (kernels/pallas_step.fused_advect_project,
-    # ``FluidSequential.c:232-240`` in one kernel) but measured SLOWER
-    # than the advect_pair + project composition (0.98 vs 0.82 ms at
-    # 2048²/20it/cmax=1) — kept as a tested, documented capability only.
 
 
-def _advect_pair_ref(b1, b2, d1, d2, u, v, dt, n):
-    return _advect_ref(b1, d1, u, v, dt, n), _advect_ref(b2, d2, u, v, dt, n)
+def _platform() -> tuple[str, str]:
+    """(platform, compute capability) of the default device."""
+    dev = jax.devices()[0]
+    return dev.platform, str(getattr(dev, "compute_capability", ""))
 
 
-def _project_ref_op(u, v, n, iters, cheby_rho=None):
-    div = _divergence_ref(u, v, n)
-    p = _pressure_ref(div, iters, cheby_rho=cheby_rho)
-    return _apg_ref(u, v, p, n)
+def _hopper_unsupported(cfg: SimConfig) -> str | None:
+    """Why the Jacobi kernel cannot run this config here, or None."""
+    platform, cc = _platform()
+    if platform != "gpu":
+        return f"the Jacobi kernel needs a CUDA GPU; platform is {platform!r}"
+    if not cc.startswith("9."):
+        return (f"the Jacobi kernel is built for sm_90a (Hopper); device "
+                f"compute capability is {cc or 'unknown'}")
+    if cfg.ndim != 2:
+        return f"the Jacobi kernel is 2-D; ndim={cfg.ndim}"
+    if jnp.dtype(cfg.dtype) != jnp.float32:
+        return f"the Jacobi kernel is float32; dtype={jnp.dtype(cfg.dtype)}"
+    return None
 
 
-def _diffuse_src_ref(b, src, base, alpha, beta, iters, dt, cheby_rho=None):
-    import jax.numpy as jnp
-
-    rhs = base + jnp.asarray(dt, base.dtype) * src
-    return _diffuse_ref(b, src, rhs, alpha, beta, iters,
-                        cheby_rho=cheby_rho)
-
-
-_REFERENCE_OPS = OpSet(
-    diffuse=_diffuse_ref,
-    advect=_advect_ref,
-    divergence=_divergence_ref,
-    pressure_solve=_pressure_ref,
-    apply_pressure_gradient=_apg_ref,
-    advect_pair=_advect_pair_ref,
-    project=_project_ref_op,
-    diffuse_src=_diffuse_src_ref,
-)
+def resolve_backend(cfg: SimConfig,
+                    unsupported: str | None = None) -> tuple[str, str]:
+    """``(backend that runs, why)`` for ``cfg.backend``.  An explicit
+    ``"hopper"`` that cannot run raises instead of falling back.
+    ``unsupported`` is the caller's own reason why its step cannot take
+    the kernel at all (the sharded steps)."""
+    if cfg.backend == "reference":
+        return "reference", "requested"
+    reason = unsupported or _hopper_unsupported(cfg)
+    if cfg.backend == "hopper":
+        if reason is not None:
+            raise ValueError(f"backend='hopper' cannot run: {reason}")
+        return "hopper", "requested"
+    if reason is not None:
+        return "reference", f"auto declined the Jacobi kernel: {reason}"
+    return "hopper", "auto: Hopper GPU, float32 2-D grid"
 
 
-def _on_tpu() -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover - defensive
-        return False
+def _opset(diffuse: Callable, advect: Callable) -> OpSet:
+    def pressure_solve(div, iters, cheby_rho=None):
+        # p is zeroed before the solve (FluidSequential.c:153).
+        return diffuse(0, jnp.zeros_like(div), div, 1.0, 4.0, iters,
+                       cheby_rho=cheby_rho)
+
+    def project(u, v, n, iters, cheby_rho=None):
+        p = pressure_solve(_divergence(u, v, n), iters, cheby_rho=cheby_rho)
+        return _apg(u, v, p, n)
+
+    def diffuse_src(b, src, base, alpha, beta, iters, dt, cheby_rho=None):
+        rhs = base + jnp.asarray(dt, base.dtype) * src
+        return diffuse(b, src, rhs, alpha, beta, iters, cheby_rho=cheby_rho)
+
+    def advect_pair(b1, b2, d1, d2, u, v, dt, n):
+        return advect(b1, d1, u, v, dt, n), advect(b2, d2, u, v, dt, n)
+
+    return OpSet(
+        diffuse=diffuse,
+        advect=advect,
+        divergence=_divergence,
+        pressure_solve=pressure_solve,
+        apply_pressure_gradient=_apg,
+        advect_pair=advect_pair,
+        project=project,
+        diffuse_src=diffuse_src,
+    )
 
 
-def _pallas_supported(cfg: SimConfig) -> bool:
-    from . import pallas_ops
+def reference_ops(cfg: SimConfig) -> OpSet:
+    """Every op as plain jnp/XLA."""
+    def diffuse(b, x_init, x0, alpha, beta, iters, cheby_rho=None):
+        if cheby_rho is not None:
+            return _cheby_diffuse(b, x_init, x0, alpha, beta, iters,
+                                  cheby_rho)
+        return _diffuse_jacobi(b, x_init, x0, alpha, beta, iters)
 
-    return pallas_ops.supports(cfg)
+    return _opset(diffuse, _advect)
 
 
-_WARNED_DECLINED: set = set()
+def kernel_ops(cfg: SimConfig, launch_fn: Callable | None = None) -> OpSet:
+    """Jacobi and Chebyshev solves through the kernel's launch plan
+    (``kernels/hopper_jacobi.py``), every other op plain XLA.
+    ``launch_fn`` replaces the kernel launch: ``reference_launch`` runs
+    the same plan as plain XLA ops on any device."""
+    from . import hopper_jacobi as hj
+
+    launch = hj.launch if launch_fn is None else launch_fn
+
+    def diffuse(b, x_init, x0, alpha, beta, iters, cheby_rho=None):
+        return hj.jacobi(b, x_init, x0, alpha, beta, iters,
+                         cheby_rho=cheby_rho, launch_fn=launch)
+
+    return _opset(diffuse, _advect)
 
 
 def get_ops(cfg: SimConfig) -> OpSet:
-    backend = cfg.backend
-    if backend == "auto":
-        on_tpu = _on_tpu()
-        ok = on_tpu and _pallas_supported(cfg)
-        if on_tpu and not ok and (cfg.n, cfg.ndim) not in _WARNED_DECLINED:
-            # The jnp path is ~80x slower on TPU; a silent fallback at the
-            # headline backend would misread as a perf regression.
-            import warnings
-
-            _WARNED_DECLINED.add((cfg.n, cfg.ndim))
-            warnings.warn(
-                f"backend='auto' on TPU fell back to the reference (jnp) ops "
-                f"for side={cfg.n + 2}, ndim={cfg.ndim}, dtype={cfg.dtype}: "
-                f"the pallas kernels need ndim=2, float32, side >= 128 and "
-                f"side % 8 == 0 (pick n = multiple-of-8 minus 2). Expect "
-                f"~80x lower throughput on this path.",
-                stacklevel=2,
-            )
-        backend = "pallas" if ok else "reference"
-    if backend == "reference":
-        mode = cfg.advect_mode
-        if mode == "auto":
-            mode = "windowed" if _on_tpu() else "exact"
-        if mode == "windowed":
-            from ..ops.advect import advect_windowed
-
-            def adv(b, d0, u, v, dt, n):
-                return advect_windowed(b, d0, u, v, dt, n, cfg.max_courant)
-
-            def adv_pair(b1, b2, d1, d2, u, v, dt, n):
-                return adv(b1, d1, u, v, dt, n), adv(b2, d2, u, v, dt, n)
-
-            return _REFERENCE_OPS._replace(advect=adv, advect_pair=adv_pair)
-        return _REFERENCE_OPS
-    if backend == "pallas":
-        from . import pallas_ops  # deferred: requires TPU-capable lowering
-
-        return pallas_ops.make_opset(cfg)
-    raise ValueError(f"unknown backend {backend!r}")
+    backend, _ = resolve_backend(cfg)
+    return kernel_ops(cfg) if backend == "hopper" else reference_ops(cfg)

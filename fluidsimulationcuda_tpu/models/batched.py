@@ -1,9 +1,11 @@
 """Batched simulation — vmap datagen (BASELINE config 4).
 
 The reference runs exactly one simulation per process (``main`` owns the six
-grids, ``FluidSequential.c:273-334``).  On TPU, ``jax.vmap`` over the step
+grids, ``FluidSequential.c:273-334``).  Here ``jax.vmap`` over the step
 turns the same solver into a data generator: thousands of independent small
-sims per chip, each with its own randomized sources, in one compiled program.
+sims per device, each with its own randomized sources, in one compiled
+program.  The Jacobi kernel takes the batch axis as one more grid
+dimension (``kernels/hopper_jacobi.py``), so the vmapped step keeps it.
 
 Sharding: batched state can additionally be distributed over a mesh axis
 ("batch" data parallelism) via ``jax.sharding``; spatial sharding stays the
@@ -19,12 +21,10 @@ import jax.numpy as jnp
 
 from ..core.config import SimConfig
 from ..core.state import reference_init
+from ..kernels.dispatch import resolve_backend
 from .stable_fluids_2d import step, step_audited
 
-__all__ = [
-    "batched_init", "make_batched_step_fn", "generate_trajectories",
-    "select_cmax_batched",
-]
+__all__ = ["batched_init", "make_batched_step_fn", "generate_trajectories"]
 
 
 def batched_init(key: jax.Array, cfg: SimConfig, batch: int):
@@ -35,65 +35,12 @@ def batched_init(key: jax.Array, cfg: SimConfig, batch: int):
     return jax.vmap(lambda k: reference_init(k, cfg))(keys)
 
 
-def _use_batched_pallas(cfg: SimConfig) -> bool:
-    """The Pallas kernels are batch-polymorphic (batch = leading grid dim),
-    so batched state runs through them DIRECTLY — vmap is neither needed nor
-    possible (ANY-memory blocks reject JAX batching).  Chebyshev solves run
-    the same batch-polymorphic kernels (``_sweep_loop``); mg/cg are jnp
-    solvers that need the vmapped path."""
-    if cfg.pressure_solver not in ("jacobi", "chebyshev"):
-        return False
-    from ..kernels.dispatch import _on_tpu, _pallas_supported
-
-    if cfg.backend == "pallas":
-        return True
-    return cfg.backend == "auto" and _on_tpu() and _pallas_supported(cfg)
-
-
-def _batched_cfg(cfg: SimConfig) -> SimConfig:
-    if cfg.backend in ("pallas", "auto"):
-        cfg = cfg.replace(backend="reference")
-    return cfg
-
-
 def make_batched_step_fn(cfg: SimConfig) -> Callable:
-    """Jitted step over a leading batch axis: batch-polymorphic Pallas
-    kernels when available, vmapped jnp step otherwise."""
-    if _use_batched_pallas(cfg):
-        return jax.jit(functools.partial(step, cfg.replace(backend="pallas")))
-    return jax.jit(jax.vmap(functools.partial(step, _batched_cfg(cfg))))
-
-
-def select_cmax_batched(
-    key: jax.Array,
-    cfg: SimConfig,
-    batch: int,
-    *,
-    probe_steps: int = 8,
-    margin: float = 0.25,
-) -> tuple[int, float]:
-    """Pick the smallest exact advection gather window for a datagen run.
-
-    Replays the first ``probe_steps`` of the trajectory through the
-    EXACT-gather jnp path (``ops/advect.py``, arbitrary displacement — the
-    true trajectory by construction, no grow-and-retry loop needed) while
-    auditing the max backtrace displacement, then returns the smallest
-    ``cmax`` with ``margin`` cells to spare.  Datagen displacement peaks at
-    injection and decays under viscosity, so the probe window sees the max;
-    the in-scan audit that ``generate_trajectories`` always carries verifies
-    this post-hoc for the full run.  Returns ``(cmax, probed_displacement)``.
-    """
-    exact_cfg = cfg.replace(backend="reference", advect_mode="exact")
-    state, sources = batched_init(key, exact_cfg, batch)
-    audited = jax.jit(jax.vmap(functools.partial(step_audited, exact_cfg)))
-    zeros = jax.tree.map(jnp.zeros_like, sources)
-    dmax = 0.0
-    for k in range(probe_steps):
-        state, d = audited(state, sources if k == 0 else zeros)
-        dmax = max(dmax, float(jnp.max(d)))
-    import math
-
-    return max(1, int(math.floor(dmax + margin)) + 1), dmax
+    """Jitted step over a leading batch axis (``vmap`` of ``step``); it
+    carries ``.backend`` / ``.backend_reason`` like ``make_step_fn``."""
+    fn = jax.jit(jax.vmap(functools.partial(step, cfg)))
+    fn.backend, fn.backend_reason = resolve_backend(cfg)
+    return fn
 
 
 def generate_trajectories(
@@ -103,37 +50,15 @@ def generate_trajectories(
     num_steps: int,
     *,
     snapshot_every: int = 0,
-    auto_cmax: bool = False,
 ):
     """Run ``batch`` sims for ``num_steps`` (sources on step 1 only, like the
     reference harness).  Returns ``(final_state, snapshots, max_disp)``:
     the final batched state; with ``snapshot_every=k`` stacked density
     snapshots every k steps (the datagen payload, shape
     ``(num_snaps, batch, side, side)``), else None; and the max backtrace
-    displacement (cells) seen by any advection over the whole run — the
-    windowed gather was exact iff ``max_disp < cfg.max_courant``
-    (``FluidSequential.c:117-127`` clamp semantics; audit carried inside
-    the scan, two reductions per step — effectively free).
-
-    ``auto_cmax=True`` first probes the trajectory with the exact-gather
-    path and shrinks ``cfg.max_courant`` to the smallest exact window
-    (``select_cmax_batched``) — the gather cost is quadratic in the window,
-    so datagen's sub-cell displacements run ~4x faster than the cmax=4
-    default.
+    displacement (cells) seen by any advection over the whole run (audit
+    carried inside the scan, two reductions per step — effectively free).
     """
-    if auto_cmax:
-        cmax, probed = select_cmax_batched(key, cfg, batch)
-        if cmax > cfg.max_courant:
-            # The probe proved the configured window too small — growing it
-            # keeps the run exact; clamping silently would not.
-            import warnings
-
-            warnings.warn(
-                f"probed displacement {probed:.3f} cells exceeds the "
-                f"configured max_courant={cfg.max_courant}; growing the "
-                f"gather window to cmax={cmax} to keep the run exact"
-            )
-        cfg = cfg.replace(max_courant=cmax)
     state, sources = batched_init(key, cfg, batch)
     runner = _trajectory_runner(cfg, num_steps, snapshot_every)
     return runner(state, sources)
@@ -144,14 +69,11 @@ def _trajectory_runner(cfg: SimConfig, num_steps: int, snapshot_every: int):
     """Compiled trajectory scan, cached per (cfg, steps, cadence) — a fresh
     jit per call would re-trace the whole scan every time (measured ~19s of
     pure tracing overhead per datagen call)."""
-    if _use_batched_pallas(cfg):
-        vstep = functools.partial(step_audited, cfg.replace(backend="pallas"))
-    else:
-        _vs = jax.vmap(functools.partial(step_audited, _batched_cfg(cfg)))
+    _vs = jax.vmap(functools.partial(step_audited, cfg))
 
-        def vstep(st, src):
-            st, d = _vs(st, src)
-            return st, jnp.max(d)
+    def vstep(st, src):
+        st, d = _vs(st, src)
+        return st, jnp.max(d)
 
     @jax.jit
     def run(state, sources):

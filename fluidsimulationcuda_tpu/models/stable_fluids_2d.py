@@ -24,7 +24,7 @@ import jax.numpy as jnp
 
 from ..core.config import SimConfig
 from ..core.state import FluidState, Sources, zero_sources
-from ..kernels.dispatch import get_ops
+from ..kernels.dispatch import get_ops, resolve_backend
 
 __all__ = [
     "vel_step", "dens_step", "step", "step_audited", "make_step_fn",
@@ -37,16 +37,9 @@ def _make_project(cfg: SimConfig, ops):
     if cfg.pressure_solver == "multigrid":
         from ..ops.multigrid import mg_pressure_solve_fast
 
-        # Pallas opsets smooth through the fused-sweep kernel (the jnp
-        # smoother costs ~10x at 2048²); reference opsets stay pure jnp.
-        # Discriminate on diffuse_advect — the field every pallas opset
-        # sets and the reference opset leaves None.
-        pallas_smoother = ops.diffuse_advect is not None
-
         def _project(u, v):
             div = ops.divergence(u, v, cfg.n)
-            p = mg_pressure_solve_fast(div, cycles=cfg.mg_cycles,
-                                       pallas_smoother=pallas_smoother)
+            p = mg_pressure_solve_fast(div, cycles=cfg.mg_cycles)
             return ops.apply_pressure_gradient(u, v, p, cfg.n)
     elif cfg.pressure_solver == "cg":
         from ..ops.cg import cg_pressure_solve
@@ -56,9 +49,9 @@ def _make_project(cfg: SimConfig, ops):
             p = cg_pressure_solve(div, iters=cfg.cg_iters)
             return ops.apply_pressure_gradient(u, v, p, cfg.n)
     elif cfg.pressure_solver == "chebyshev":
-        # Chebyshev-accelerated pressure sweeps inside the SAME fused
-        # projection kernel as parity Jacobi (ops/chebyshev.py; validated
-        # by bench.py's perf-mode divergence audit).
+        # Chebyshev-accelerated pressure sweeps through the same solve as
+        # parity Jacobi (ops/chebyshev.py; validated by bench.py's
+        # perf-mode divergence audit).
         def _project(u, v):
             return ops.project(u, v, cfg.n, cfg.press_cheby_iters,
                                cheby_rho=cfg.cheby_rho)
@@ -87,22 +80,13 @@ def vel_step(
     ops = get_ops(cfg)
     alpha = cfg.diffusion_alpha_visc
     beta = 1.0 + 4.0 * alpha
-    # add_source fused into the diffusion rhs (kernel-level on pallas).
-    # NOT the batched pair kernel: fusing u+v into one stacked call measured
-    # SLOWER (1.16 vs 1.02 ms at 2048^2) — the stacking concatenate copies
-    # both fields and XLA already pipelines the two independent solves
-    # back-to-back (see kernels.pallas_ops.fused_jacobi_pair).
+    # add_source folded into the diffusion rhs (FluidSequential.c:198-200).
     d_iters, d_kw = _diffusion_args(cfg)
     u = ops.diffuse_src(1, u_src, u, alpha, beta, d_iters, cfg.dt, **d_kw)
     v = ops.diffuse_src(2, v_src, v, alpha, beta, d_iters, cfg.dt, **d_kw)
     _project = _make_project(cfg, ops)
 
     u, v = _project(u, v)
-    # NOTE: a fused advect-pair + second-projection kernel exists
-    # (kernels/pallas_step.fused_advect_project) but measured SLOWER than
-    # this composition (0.98 vs 0.82 ms at 2048²) and is deliberately not
-    # dispatched — the capability and its measurement live in
-    # kernels/pallas_step.py and docs/PERFORMANCE.md.
     u0, v0 = u, v
     u, v = ops.advect_pair(1, 2, u0, v0, u0, v0, cfg.dt, cfg.n)
     return _project(u, v)
@@ -116,9 +100,6 @@ def dens_step(
     alpha = cfg.diffusion_alpha_diff
     beta = 1.0 + 4.0 * alpha
     d_iters, d_kw = _diffusion_args(cfg, dens=True)
-    if ops.diffuse_advect is not None:
-        return ops.diffuse_advect(0, dens_src, dens, u, v, alpha, beta,
-                                  d_iters, cfg.dt, cfg.n, **d_kw)
     dens = ops.diffuse_src(0, dens_src, dens, alpha, beta, d_iters, cfg.dt,
                            **d_kw)
     return ops.advect(0, dens, u, v, cfg.dt, cfg.n)
@@ -141,9 +122,9 @@ def step_audited(
     The velocity self-advection backtraces through the *post-projection*
     intermediate velocities (``FluidSequential.c:232,237``), not the
     between-steps state, so auditing the stored state alone under-reports.
-    The windowed gather (``kernels/pallas_ops.py`` clamp, matching
-    ``FluidSequential.c:117-127`` semantics within the window) is exact for
-    a step iff this value stays strictly below ``cfg.max_courant``.
+    The sharded step's windowed gather (``ops/advect.py:advect_windowed``)
+    is exact for a step iff this value stays strictly below
+    ``cfg.max_courant``.
     """
     dt0 = cfg.dt * cfg.n
 
@@ -170,10 +151,16 @@ def step_audited(
 
 
 def make_step_fn(cfg: SimConfig) -> Callable[[FluidState, Sources], FluidState]:
-    """A jitted step closed over the (static) config — the TPU analogue of
+    """A jitted step closed over the (static) config — the analogue of
     uploading ``__constant__`` config once and launching forever
-    (``naivePar/...BlockPerElement-Naive.cu:386-389``)."""
-    return jax.jit(functools.partial(step, cfg))
+    (``naivePar/...BlockPerElement-Naive.cu:386-389``).
+
+    The function carries ``.backend`` (the backend that runs) and
+    ``.backend_reason`` (why: requested, or why ``auto`` declined the
+    kernel), from ``kernels.dispatch.resolve_backend``."""
+    fn = jax.jit(functools.partial(step, cfg))
+    fn.backend, fn.backend_reason = resolve_backend(cfg)
+    return fn
 
 
 def simulate(
@@ -219,6 +206,8 @@ class StableFluids2D:
             raise ValueError("StableFluids2D requires ndim == 2")
         self.cfg = cfg
         self._step = make_step_fn(cfg)
+        self.backend = self._step.backend
+        self.backend_reason = self._step.backend_reason
 
     def step(self, state: FluidState, sources: Sources | None = None) -> FluidState:
         if sources is None:

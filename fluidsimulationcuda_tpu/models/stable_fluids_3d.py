@@ -2,9 +2,7 @@
 
 Same step composition as the 2-D flagship (``FluidSequential.c:176-241``)
 lifted to three dimensions: three velocity components, 6-neighbor Jacobi
-solves, trilinear advection gather.  jnp/XLA backend (Pallas 3-D kernels are
-a later optimization; XLA handles the volumetric stencils reasonably since
-the lane dimension stays contiguous).
+solves, trilinear advection gather.  Plain jnp/XLA ops (``ops/three_d.py``).
 """
 from __future__ import annotations
 
@@ -15,61 +13,21 @@ import jax
 
 from ..core.config import SimConfig
 from ..core.state import FluidState, Sources, zero_sources
+from ..kernels.dispatch import resolve_backend
 from ..ops.source import add_source
 from ..ops import three_d as o3
 
 __all__ = ["vel_step3", "dens_step3", "step3", "step_audited3", "make_step_fn_3d", "StableFluids3D"]
 
 
-def _use_pallas3(cfg: SimConfig) -> bool:
-    import jax
-    import jax.numpy as jnp
-
-    from ..kernels import pallas_ops, pallas_ops_3d
-
-    if cfg.dtype != jnp.float32:
-        return False
-    if cfg.backend == "pallas":
-        return True
-    return (
-        cfg.backend == "auto"
-        and not pallas_ops.INTERPRET
-        and jax.default_backend() == "tpu"
-        and pallas_ops_3d.supports3(cfg.n + 2)
-    )
-
-
 class _Ops3:
-    """3-D op dispatch: jnp (reference) vs fused Pallas volume kernels.
-
-    Ghost-layer policy on the Pallas path (round 3 — ~20% of the step
-    before): the full ``set_bnd3`` rebuild used to run after EVERY kernel
-    (~18 calls/step, ~1 ms each at 256³ through the embed route).  Two
-    fixes: (a) ``set_bnd3`` now writes faces directly instead of padding a
-    fresh volume, and (b) calls whose consumers never read the cells they
-    would fix are dropped.  The dependency facts that make (b) sound:
-    the Jacobi kernel maintains ghost FACES in-sweep (exact jnp face
-    rule); 6/7-point stencils never read ghost edges/corners (a stencil
-    neighbor of an interior cell has at most one ghost coordinate); the
-    pressure solve reads its rhs at interior cells only and starts from a
-    zero guess; gathers DO read edges/corners (the backtrace clamp makes
-    them trilinear sources).  So: diffusion outputs and the in-projection
-    div/p flow raw; gradient outputs get the full layer (their ghost is
-    roll garbage, and they feed gathers or are final); self-advected
-    velocities get faces only (they feed only the second projection);
-    density results get the full layer (final)."""
+    """3-D op selection: Jacobi or Chebyshev solves as the config asks,
+    the exact trilinear gather."""
 
     def __init__(self, cfg: SimConfig):
         self.cfg = cfg
-        self.pallas = _use_pallas3(cfg)
 
     def diffuse(self, b, x_init, x0, alpha, beta, iters, cheby_rho=None):
-        if self.pallas:
-            from ..kernels import pallas_ops_3d as k3
-
-            return k3.fused_jacobi3(b, x_init, x0, alpha, beta, iters,
-                                    fast=self.cfg.fast_math,
-                                    cheby_rho=cheby_rho)
         if cheby_rho is not None:
             from ..ops.chebyshev import cheby_diffuse3
 
@@ -77,73 +35,21 @@ class _Ops3:
                                   cheby_rho)
         return o3.diffuse3(b, x_init, x0, alpha, beta, iters)
 
-    def advect(self, b, d0, u, v, w, *, d0_complete=False, final=True):
-        cfg = self.cfg
-        if self.pallas:
-            from ..kernels import pallas_ops_3d as k3
-
-            if not d0_complete:  # gather sources include edges/corners;
-                d0 = o3.fix_edges3(d0)  # faces are kernel-maintained
-            out = k3.advect3_shift(b, d0, u, v, w, cfg.dt, cfg.n,
-                                   cmax=cfg.max_courant)
-            return o3.set_bnd3(b, out) if final else out
-        import jax
-
-        if jax.default_backend() == "tpu":
-            return o3.advect3_windowed(b, d0, u, v, w, cfg.dt, cfg.n,
-                                       cmax=cfg.max_courant)
-        return o3.advect3(b, d0, u, v, w, cfg.dt, cfg.n)
+    def advect(self, b, d0, u, v, w):
+        return o3.advect3(b, d0, u, v, w, self.cfg.dt, self.cfg.n)
 
     def advect_self(self, u, v, w):
-        cfg = self.cfg
-        if self.pallas:
-            from ..kernels import pallas_ops_3d as k3
-
-            # Three singles beat the fused triple at 256³ (18.9 vs 20.3 ms
-            # — nf=3 shrinks the plane-strip plan; same measured-choice
-            # policy as the 2-D u+v pair kernel).  Inputs (gradient
-            # outputs) already carry the full ghost layer; outputs feed
-            # only the second projection, so faces suffice.
-            outs = (
-                k3.advect3_shift(1, u, u, v, w, cfg.dt, cfg.n,
-                                 cmax=cfg.max_courant),
-                k3.advect3_shift(2, v, u, v, w, cfg.dt, cfg.n,
-                                 cmax=cfg.max_courant),
-                k3.advect3_shift(3, w, u, v, w, cfg.dt, cfg.n,
-                                 cmax=cfg.max_courant),
-            )
-            return tuple(
-                o3.fix_faces3(b, x) for b, x in zip((1, 2, 3), outs)
-            )
         return (self.advect(1, u, u, v, w), self.advect(2, v, u, v, w),
                 self.advect(3, w, u, v, w))
 
     def project(self, u, v, w, iters):
         cfg = self.cfg
         if cfg.pressure_solver == "chebyshev":
-            iters = cfg.press_cheby_iters
-            rho = cfg.cheby_rho
-        else:
-            rho = None
-        if self.pallas:
-            from ..kernels import pallas_ops_3d as k3
-
-            # div feeds only the pressure solve's rhs (interior reads) and
-            # p feeds only the 1-ring gradient (kernel-maintained faces):
-            # both flow raw.  Gradient outputs feed gathers or are final:
-            # full ghost layer.
-            div = k3.divergence3_p(u, v, w, cfg.n)
-            p = k3.fused_jacobi3(0, div, div, 1.0, 6.0, iters,
-                                 zero_init=True, fast=cfg.fast_math,
-                                 cheby_rho=rho)
-            gu, gv, gw = k3.gradient3_p(u, v, w, p, cfg.n)
-            return (o3.set_bnd3(1, gu), o3.set_bnd3(2, gv),
-                    o3.set_bnd3(3, gw))
-        if rho is not None:
             from ..ops.chebyshev import cheby_pressure_solve3
 
             div = o3.divergence3(u, v, w, cfg.n)
-            p = cheby_pressure_solve3(div, iters, rho)
+            p = cheby_pressure_solve3(div, cfg.press_cheby_iters,
+                                      cfg.cheby_rho)
             return o3.apply_pressure_gradient3(u, v, w, p, cfg.n)
         return o3.project3(u, v, w, cfg.n, iters)
 
@@ -160,7 +66,7 @@ def vel_step3(cfg: SimConfig, u, v, w, u_src, v_src, w_src):
         # 3-D compensated mode: velocity diffusion on Chebyshev sweeps,
         # with the extra mid-frequency divergence absorbed by the raised
         # pressure sweep count (``cheby_press_iters``) — the 3-D twin of
-        # the 2-D compensated point (dev/bench_r3s_3dcomp.py).
+        # the 2-D compensated point.
         d_it, d_rho = cfg.cheby_iters, cfg.cheby_rho
     else:
         d_it, d_rho = it, None
@@ -203,11 +109,8 @@ def step3(cfg: SimConfig, state: FluidState, sources: Sources) -> FluidState:
 def step_audited3(cfg: SimConfig, state: FluidState, sources: Sources):
     """``step3`` plus the max trilinear backtrace displacement (cells) its
     advection call sites actually see — the 3-D twin of ``step_audited``.
-    The gather cost is CUBIC in the window ((2C+1)^3 masked shifts), so
-    shrinking ``max_courant`` to the audited displacement is worth ~4.6x
-    on the advection phase alone (125 -> 27 terms at C=1); the windowed
-    gather is exact for a step iff this value stays below
-    ``cfg.max_courant``."""
+    The sharded step's windowed gather is exact for a step iff this value
+    stays below ``cfg.max_courant``."""
     import jax.numpy as jnp
 
     dt0 = cfg.dt * cfg.n
@@ -242,9 +145,15 @@ def step_audited3(cfg: SimConfig, state: FluidState, sources: Sources):
 
 
 def make_step_fn_3d(cfg: SimConfig) -> Callable:
+    """A jitted 3-D step.  It runs plain XLA ops; like the 2-D
+    ``make_step_fn`` it carries ``.backend`` / ``.backend_reason``
+    (``auto`` declines the 2-D Jacobi kernel, ``hopper`` raises)."""
     if cfg.ndim != 3:
         raise ValueError("make_step_fn_3d requires ndim == 3")
-    return jax.jit(functools.partial(step3, cfg))
+    backend, reason = resolve_backend(cfg)
+    fn = jax.jit(functools.partial(step3, cfg))
+    fn.backend, fn.backend_reason = backend, reason
+    return fn
 
 
 class StableFluids3D:
@@ -253,6 +162,8 @@ class StableFluids3D:
             raise ValueError("StableFluids3D requires ndim == 3")
         self.cfg = cfg
         self._step = make_step_fn_3d(cfg)
+        self.backend = self._step.backend
+        self.backend_reason = self._step.backend_reason
 
     def step(self, state: FluidState, sources: Sources | None = None):
         if sources is None:

@@ -79,8 +79,8 @@ def advect_windowed(
     n: int,
     cmax: int,
 ) -> jnp.ndarray:
-    """Window-clamped advection: the jnp specification of the Pallas
-    kernel's masked-shift gather (``kernels/pallas_ops.py``) — the backtrace
+    """Window-clamped advection: the masked-shift gather the sharded step
+    uses to bound its halo depth (``parallel/sharded.py``) — the backtrace
     is additionally clamped to ±``cmax`` cells around each output cell, and
     the gather is a sum of (2C+1)² masked shifts.
 
@@ -99,8 +99,7 @@ def advect_windowed(
     mask keys), and the ``+1`` corner reads reach at most ``j+cmax+1``,
     inside the ``cmax``-padded buffer (rows identically).  For ``d > cmax``
     the window clamp fires on some cell and the results differ.  The
-    boundary is pinned by ``tests/test_exactness_boundary.py`` (2-D & 3-D)
-    and by the compiled-Mosaic lane in ``dev/validate_tpu.py``."""
+    boundary is pinned by ``tests/test_exactness_boundary.py`` (2-D & 3-D)."""
     dtype = jnp.promote_types(d0.dtype, jnp.float32)  # f32 coords + blend
     x, y = backtrace(u, v, dt, n)
     jj = jnp.arange(1, n + 1, dtype=dtype)[None, :]

@@ -1,4 +1,4 @@
-"""Boundary conditions, TPU-style.
+"""Boundary conditions as one functional op.
 
 The reference implements ``set_bnd`` four different ways — a scalar loop
 (``FluidSequential.c:62-75``), per-kernel fused device functions behind an

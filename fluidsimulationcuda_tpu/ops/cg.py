@@ -11,8 +11,8 @@ with the solver's copy (Neumann-like) ghost rule folded into the operator
 modified stencil — A stays symmetric positive semi-definite on the
 mean-zero subspace CG walks).
 
-TPU shape: each iteration is two elementwise passes + one 5-point stencil
-+ two reductions — all VPU work XLA fuses well; the iteration count for a
+Shape of the work: each iteration is two elementwise passes + one 5-point
+stencil + two reductions — work XLA fuses well; the iteration count for a
 given residual is O(n) vs Jacobi's O(n²), and ~15-20 iterations already
 beat 40 Jacobi sweeps by orders of magnitude in residual (see
 ``tests/test_cg.py``).  Like multigrid it is an *optional alternative*

@@ -19,16 +19,16 @@ Jacobi loop (``FluidSequential.c:85-104,218-220``):
   mode-0 Neumann nullspace (additive constants in the pressure solve) is
   left untouched exactly as plain Jacobi leaves it.  ``rho`` is therefore
   a free tuning knob, not a stability bound to estimate.
-- Measured on the forced 2048² trajectory (dev/bench_r3m_cheby.py):
-  cheby-10 at rho=0.99 gives 0.68-0.83x the Jacobi-20 residual on all
-  five of the step's solves (both pressure solves, both velocity
-  diffusions, density diffusion) — half the sweeps, better quality.
-  bench.py validates this on every run (post-projection max|divergence|
-  and diffusion residuals vs the parity Jacobi-20 on the same states).
+- On the forced 2048² trajectory cheby-10 at rho=0.99 gave 0.68-0.83x
+  the Jacobi-20 residual on all five of the step's solves (both pressure
+  solves, both velocity diffusions, density diffusion) — half the
+  sweeps, better quality.  bench.py validates this on every run
+  (post-projection max|divergence| and diffusion residuals vs the parity
+  Jacobi-20 on the same states).
 
 Not a parity mode: the reference runs plain Jacobi, so the parity headline
 keeps ``"jacobi"``.  This module is the differential-test oracle for the
-Pallas chebyshev kernels.
+Chebyshev launches of the Jacobi kernel (``kernels/hopper_jacobi.py``).
 """
 from __future__ import annotations
 
@@ -81,7 +81,7 @@ def cheby_diffuse(
         # combo would otherwise leak x_{k-1}'s ghosts (for k=2, the RAW
         # guess border) into a ring the next sweep reads.  Ghosts follow
         # the mode-b rule of the CURRENT interior at every iterate — the
-        # same semantics the Pallas kernel's in-sweep BC produces.
+        # same semantics the Jacobi kernel's in-sweep BC produces.
         xm, x = x, embed_interior(b, xn[1:-1, 1:-1])
     return x
 

@@ -16,7 +16,7 @@ reference's numerics.
 Components: damped-Jacobi smoothing, full-weighting restriction (×4 rhs
 scaling for the coarse operator), bilinear prolongation, recursive coarsening
 while the interior size stays even, ~40 Jacobi sweeps on the coarsest level.
-Pure jnp — runs on every backend and under ``shard_map``-free single-chip
+Pure jnp — runs on every backend and under ``shard_map``-free single-device
 jit; n must be even down to the coarsest level used.
 """
 from __future__ import annotations
@@ -86,9 +86,7 @@ def _prolong(e: jnp.ndarray) -> jnp.ndarray:
     field, which the copy BC makes well-defined at the walls).
 
     Scatter-free: the four fine parities are computed as whole coarse-grid
-    arrays and interleaved with stack+reshape.  The earlier ``.at[1::2]``
-    formulation lowered to strided scatters on TPU and dominated the whole
-    V-cycle (measured: the jnp cycle at 2048² cost ~8 ms, mostly here)."""
+    arrays and interleaved with stack+reshape."""
     ec = e  # padded (nc+2, nc+2)
     c = ec[1:-1, 1:-1]
     up = ec[0:-2, 1:-1]
@@ -146,27 +144,20 @@ def mg_pressure_solve(div: jnp.ndarray, cycles: int = 2, *, pre: int = 2,
 
 
 # ---------------------------------------------------------------------------
-# Fast path: MXU einsum transfers + tile-aligned hierarchy + Pallas smoother
+# Fast path: separable matmul transfers + graded hierarchy
 # ---------------------------------------------------------------------------
 #
-# The stride-2 / interleave formulations of _restrict/_prolong lower to
-# lane-axis shuffles on TPU and measured 4.7 ms per fine-level roundtrip at
-# 2048² — ~75% of the whole V-cycle (round-3 profile, dev/bench_r3e.py).
-# The fast path instead applies SEPARABLE transfer matrices on both axes
-# with dot_general: dense banded (n_f × n_c) interpolation matrices ride
-# the otherwise-idle MXU (~26 GFLOP/roundtrip at 2048² ≈ 0.15-0.9 ms
-# depending on precision), and every op is a clean matmul XLA lays out
-# perfectly.  The matrices also absorb grid grading: each coarse side is
-# the fine side halved then rounded DOWN to a multiple of 8, so every
-# level is (8,128)-tile-friendly and the Pallas fused-sweep smoother
-# (side % 8 == 0) engages on all of them — e.g. 2048 → 1024 → 512 → 256 →
-# 128 sides at n=2046, with mildly-graded coarsening ratios (~2.002)
-# standard mg theory tolerates.
+# The fast path applies SEPARABLE transfer matrices on both axes with
+# matmuls: dense banded (n_f × n_c) interpolation matrices instead of
+# stride-2 / interleave shuffles.  The matrices also absorb grid grading:
+# each coarse side is the fine side halved then rounded DOWN to a multiple
+# of 8, e.g. 2048 → 1024 → 512 → 256 → 128 sides at n=2046, with
+# mildly-graded coarsening ratios (~2.002) standard mg theory tolerates.
 
 
 def _coarse_side(side: int) -> int:
-    """Next level's padded side: halve, round down to a multiple of 8
-    (tile-aligned, Pallas-smoothable), floor at 16."""
+    """Next level's padded side: halve, round down to a multiple of 8,
+    floor at 16."""
     half = side // 2
     return max(16, half - half % 8)
 
@@ -192,17 +183,12 @@ def _transfer_1d(nf: int, nc: int):
     return P, R
 
 
-# f32 matmuls on TPU run as bf16 MXU passes.  Measured at 2048² (round 3,
-# dev/bench_r3h.py): HIGHEST (6-pass, effective f32) costs 0.78 ms of a
-# 1.61 ms V-cycle; DEFAULT (one bf16 pass) makes the cycle 0.67 ms but
-# floors the achievable post-projection divergence at ~4e-4 one-shot /
-# ~5e-6 on the bench trajectory — WORSE than the parity Jacobi-20 solve
-# (9.3e-5 / 1.9e-6), because bf16 rounding of the prolongated correction
-# injects broadband error the post-smooth only partially damps.  HIGH
-# (bf16x3, ~f32 accuracy) is the validated sweet spot: 0.93 ms/cycle,
-# one-shot divergence 4.7e-5 — 2× better than Jacobi-20.  bench.py's
-# perf-mode line re-validates this on every run (divergence_ok).
-_TRANSFER_PRECISION = jax.lax.Precision.HIGH
+# Full float32 products.  A GPU runs a float32 matmul at DEFAULT precision
+# in TF32 (about three decimal digits); rounding the prolongated correction
+# that coarsely injects broadband error the post-smooth only partly damps.
+# The transfers are a small share of a V-cycle, so they keep float32 and
+# the solve's quality does not depend on the device.
+_TRANSFER_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def _restrict_mat(r: jnp.ndarray, nc: int) -> jnp.ndarray:
@@ -229,42 +215,15 @@ def _prolong_mat(e: jnp.ndarray, nf: int) -> jnp.ndarray:
     return embed_interior(0, ef)
 
 
-def _smooth_pallas(p, div, sweeps: int, *, zero_init: bool = False):
-    """Damped-Jacobi smoothing through the fused-sweep Pallas kernel
-    (``kernels.pallas_ops.fused_jacobi`` with ``damp``): K sweeps per HBM
-    round-trip vs one jnp pass per sweep."""
-    from ..kernels.pallas_ops import fused_jacobi
-
-    return fused_jacobi(0, p, div, 1.0, 4.0, sweeps, zero_init=zero_init,
-                        damp=_OMEGA)
-
-
-def _pallas_ok(side: int) -> bool:
-    from ..kernels import pallas_ops
-    from ..kernels.dispatch import _on_tpu
-
-    if pallas_ops.INTERPRET:
-        return True
-    # Compiled Mosaic kernels only exist on TPU — attempting to lower them
-    # on the CPU backend hangs the compile (observed, CLI --pressure-solver
-    # multigrid on CPU).
-    return _on_tpu() and side >= 128 and side % 8 == 0
-
-
 def mg_pressure_solve_fast(div: jnp.ndarray, cycles: int = 2, *,
                            pre: int = 2, post: int = 2,
-                           pallas_smoother: bool = True,
                            min_n: int = 16) -> jnp.ndarray:
-    """V-cycles with the MXU einsum transfers, a tile-aligned graded
-    hierarchy (every coarse side a multiple of 8, see ``_coarse_side``) and
-    the fused Pallas kernel smoothing any level it supports.  Same
+    """V-cycles with the separable matmul transfers and a graded hierarchy
+    (every coarse side a multiple of 8, see ``_coarse_side``).  Same
     damped-Jacobi smoothing components as ``v_cycle``; non-parity numerics
-    either way (mg is an opt-in solver, quality judged by residual)."""
+    (mg is an opt-in solver, quality judged by residual)."""
 
     def smooth(p, d, sweeps, zero_init=False):
-        side = d.shape[0]
-        if pallas_smoother and d.dtype == jnp.float32 and _pallas_ok(side):
-            return _smooth_pallas(p, d, sweeps, zero_init=zero_init)
         if zero_init:
             p = jnp.zeros_like(d)
         return _smooth(p, d, sweeps)

@@ -81,8 +81,7 @@ def embed_interior3(b: int, interior: jnp.ndarray) -> jnp.ndarray:
 def set_bnd3(b: int, x: jnp.ndarray) -> jnp.ndarray:
     """Re-derive the full ghost layer of a padded volume from its interior.
     Equivalent to ``embed_interior3(b, x[1:-1, 1:-1, 1:-1])`` but without
-    the full-volume pad copy (measured ~1 ms/call at 256³ on v5e via the
-    embed route; the step calls this on every kernel output)."""
+    the full-volume pad copy."""
     return fix_edges3(fix_faces3(b, x))
 
 
@@ -110,14 +109,8 @@ def fix_faces3(b: int, x: jnp.ndarray) -> jnp.ndarray:
 
 def fix_edges3(x: jnp.ndarray) -> jnp.ndarray:
     """Derive ONLY the ghost edges and corners from already-valid ghost
-    faces — the cheap completion for Pallas kernel outputs, whose in-sweep
-    BC maintains the 6 faces but writes composite values on edge/corner
-    cells.  ``fix_edges3(kernel_out) == set_bnd3(b, kernel_out)`` whenever
-    the faces match the jnp face rule (differentially tested), at a
-    fraction of the cost: ``set_bnd3`` re-derives the whole ghost layer
-    through a full-volume pad + face passes (~1 ms at 256³ on v5e, and the
-    step used to call it after EVERY kernel); this touches 12 edge lines +
-    8 corner cells.  Mode-independent: edge/corner values are plain
+    faces (``fix_faces3``): 12 edge lines + 8 corner cells instead of the
+    whole ghost layer.  Mode-independent: edge/corner values are plain
     averages of face values (no sign), see ``embed_interior3``."""
     dt = x.dtype
     half = jnp.asarray(0.5, dt)
@@ -211,8 +204,8 @@ def advect3(b, d0, u, v, w, dt, n):
 
 def advect3_windowed(b, d0, u, v, w, dt, n, cmax: int = 2):
     """Window-clamped trilinear advection via (2C+1)³ masked shifts — the
-    3-D twin of ``ops.advect_windowed``.  XLA TPU gathers lower serially
-    (unusable at volume sizes); masked shifts are vector ops.  Exact while
+    3-D twin of ``ops.advect_windowed``; the sharded 3-D step uses it to
+    bound its plane-halo depth.  Exact while
     the backtrace displacement stays below ``cmax`` cells per axis — the
     same condition, with the same proof, as the 2-D window
     (``ops/advect.py:advect_windowed``), applied per axis."""

@@ -10,7 +10,7 @@ the hard-coded 40 (``FluidSequential.c:91``) and (b) sources are explicit
 per-step inputs instead of reused ``*_prev`` scratch buffers.
 
 Everything here is plain NumPy on purpose: it is the independent
-implementation that the JAX/Pallas engine is differentially tested against.
+implementation that the JAX engine is differentially tested against.
 """
 from __future__ import annotations
 

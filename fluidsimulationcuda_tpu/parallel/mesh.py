@@ -1,11 +1,11 @@
-"""Device-mesh helpers for multi-chip spatial decomposition.
+"""Device-mesh helpers for multi-device spatial decomposition.
 
 The reference never leaves one GPU (SURVEY.md §2.3); its closest analogue of
-multi-chip scaling is CUDA-block shared-memory halo tiling
+multi-device scaling is CUDA-block shared-memory halo tiling
 (``smPar/FluidParallelBlockPerElement-SM.cu:169-192``).  Here that pattern is
-lifted to chip level: the padded grid is partitioned over a 2-D
+lifted to device level: the padded grid is partitioned over a 2-D
 ``jax.sharding.Mesh`` with axes ("x", "y") and each Jacobi sweep exchanges a
-1-cell halo with its mesh neighbors over ICI.
+1-cell halo with its mesh neighbors.
 """
 from __future__ import annotations
 
@@ -38,16 +38,15 @@ def make_mesh(
 
     ``layout`` picks the default factorization when ``shape`` is None:
 
-    - ``"rows"`` (default): an (n, 1) row mesh — full-width slabs.  This is
-      the blessed multi-chip shape: the per-shard Pallas slab kernels
-      (``kernels.pallas_sharded``) only exist for row slabs, and they run
-      ~80x faster than the jnp local ops that a 2-D mesh falls back to
-      (measured, docs/PERFORMANCE.md) — a compute gap no halo-traffic
-      saving recovers at practical grid sizes.  Row slabs also halve the
-      exchange count (no column halos, no corner phase).
-    - ``"square"``: near-square factorization — minimizes per-chip halo
-      bytes (O(side/sqrt(d)) vs O(side)); only worth it for the jnp path
-      on very large meshes where ICI bandwidth, not compute, dominates.
+    - ``"rows"`` (default): an (n, 1) row mesh — full-width slabs.  Row
+      slabs halve the exchange count (no column halos, no corner phase)
+      and keep every row contiguous on its device.
+    - ``"square"``: near-square factorization — minimizes per-device halo
+      bytes (O(side/sqrt(d)) vs O(side)).
+
+    The mesh follows the algorithm alone: the cards of one host are joined
+    all to all (NVLink), so no layout is closer to the interconnect than
+    another.
     """
     if devices is None:
         devices = jax.devices()

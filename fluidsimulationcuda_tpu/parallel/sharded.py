@@ -1,16 +1,16 @@
-"""Multi-chip spatial decomposition of the stable-fluids step.
+"""Multi-device spatial decomposition of the stable-fluids step.
 
 Design (SURVEY.md §2.3 "Distributed backend"): the padded (n+2, n+2) grid is
 partitioned block-wise over a 2-D device mesh; every stencil sweep exchanges
 a 1-cell halo with the four mesh neighbors via ``lax.ppermute`` (neighbor-only
-traffic — rides ICI, never DCN), and the physical boundary rule is applied
-*locally* by the shards that own a wall.  This is the chip-level
+traffic), and the physical boundary rule is applied
+*locally* by the shards that own a wall.  This is the device-level
 generalization of the reference's CUDA-block halo tiles
 (``smPar/FluidParallelBlockPerElement-SM.cu:169-192``) — except functional:
 no barriers, no divergent ``__syncthreads`` (cf. the precedence-bugged edge
 guards, ``naivePar/...BlockPerElement-Naive.cu:134-141``).
 
-Semantics are bit-compatible with the single-chip path: the local update
+Semantics are bit-compatible with the single-device path: the local update
 expressions are the same jnp expressions evaluated on local blocks, including
 the reference quirk that a Jacobi initial guess contributes its *raw* ghost
 ring to the first sweep (sources have live border values,
@@ -18,8 +18,9 @@ ring to the first sweep (sources have live border values,
 
 Advection has two modes: "exact" all-gathers the advected field (the
 backtrace displacement is not halo-bounded, ``FluidSequential.c:111``);
-"windowed" exchanges a ``max_courant``-deep halo and clamps like the Pallas
-kernels.  Jacobi solves exchange K-deep halos once per K fused sweeps.
+"windowed" exchanges a ``max_courant``-deep halo and clamps like
+``ops.advect_windowed``.  Jacobi solves exchange K-deep halos once per K
+fused sweeps.
 """
 from __future__ import annotations
 
@@ -32,8 +33,12 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.config import SimConfig
 from ..core.state import FluidState, Sources
+from ..kernels.dispatch import resolve_backend
 
 __all__ = ["make_sharded_step_fn", "shard_state"]
+
+# Why the sharded steps (2-D and 3-D) decline the Jacobi kernel.
+SHARDED_PLAIN = "the sharded steps run plain local ops inside shard_map"
 
 
 # ---------------------------------------------------------------------------
@@ -195,9 +200,9 @@ def _ext_coords(shape, K: int):
 def _diffuse_local(b, x_init, rhs, alpha, beta, iters, n, px, py, fuse=8):
     """Jacobi solve with fused-sweep halo exchange: exchange K-deep halos
     once, run K local sweeps with the validity region shrinking into the
-    halo — the chip-level version of the Pallas kernel's sweep-fusion
-    margins.  Exchanges drop from 4 messages/sweep to 4 messages/K-sweeps
-    (ICI-latency bound at scale).  Bit-identical to per-sweep exchange:
+    halo — the device-level version of the Jacobi kernel's halo tiles.
+    Exchanges drop from 4 messages/sweep to 4 messages/K-sweeps
+    (latency bound at scale).  Bit-identical to per-sweep exchange:
     every interior cell's K-sweep dependence cone lies inside the exchanged
     window (diagonals included via the two-phase exchange)."""
     dt = rhs.dtype
@@ -273,8 +278,7 @@ def _advect_local(b, d0, u, v, dtim, n, px, py):
 
 def _advect_local_windowed(b, d0, u, v, dtim, n, px, py, cmax):
     """Window-clamped advection with halo exchange instead of all-gather:
-    the multi-chip twin of ``ops.advect_windowed`` / the Pallas masked-shift
-    kernel.  Communication drops from a full-grid all-gather to a
+    the multi-device twin of ``ops.advect_windowed``.  Communication drops from a full-grid all-gather to a
     (cmax+1)-deep halo exchange."""
     dt = d0.dtype
     K = cmax + 1
@@ -347,7 +351,7 @@ def _project_local(u, v, n, iters, px, py):
 
 def _cheby_diffuse_local(b, x_init, rhs, alpha, beta, iters, rho,
                          n, px, py, fuse=8):
-    """Chebyshev-accelerated sharded Jacobi solve — the multi-chip twin of
+    """Chebyshev-accelerated sharded Jacobi solve — the multi-device twin of
     ``ops.chebyshev.cheby_diffuse`` with ``_diffuse_local``'s fused-sweep
     K-deep halo exchange.  The three-term recurrence
     ``x_{k+1} = w·S(x_k) + (1-w)·x_{k-1}`` reads x_{k-1} POINTWISE, so it
@@ -407,7 +411,7 @@ def _cheby_diffuse_local(b, x_init, rhs, alpha, beta, iters, rho,
 
 
 def _cheby_pressure_local(div, iters, rho, n, px, py):
-    """Sharded Chebyshev Poisson solve (zero guess) — the multi-chip twin
+    """Sharded Chebyshev Poisson solve (zero guess) — the multi-device twin
     of ``ops.chebyshev.cheby_pressure_solve``."""
     return _cheby_diffuse_local(0, jnp.zeros_like(div), div, 1.0, 4.0,
                                 iters, rho, n, px, py)
@@ -428,7 +432,7 @@ def _masked_dot(a, b, mask):
 
 
 def _cg_local(div, iters: int, n: int, px: int, py: int):
-    """Sharded conjugate gradient — the multi-chip twin of
+    """Sharded conjugate gradient — the multi-device twin of
     ``ops.cg.cg_pressure_solve``: every iteration is one 1-halo A-apply
     (``ppermute``) plus two global dot products (``psum``), the textbook
     distributed-CG communication pattern.  Local blocks keep the padded
@@ -507,10 +511,10 @@ def _mg_local(div, cycles: int, n: int, px: int, py: int,
     children (``ops.multigrid._restrict``'s ``4 * mean``), so each shard
     reduces its own 2x2 groups (pair-aligned by one leading pad row/col —
     shard origins are even) into a zero global coarse grid and a single
-    ``psum`` assembles it, replicated, on every chip.  All coarser levels
+    ``psum`` assembles it, replicated, on every device.  All coarser levels
     (≤ 1/4 the cells) then reuse the single-grid ``ops.multigrid.v_cycle``
     verbatim on the replicated grid; the prolonged correction is sliced
-    back to local blocks.  ICI traffic per cycle: (pre+post) 1-halo
+    back to local blocks.  Traffic per cycle: (pre+post) 1-halo
     exchanges + one coarse-grid psum — the standard distributed-MG shape.
 
     Requires even local block sizes (shard origins stay pair-aligned),
@@ -596,263 +600,6 @@ def _make_project_local(cfg: SimConfig, px: int, py: int):
 
 
 # ---------------------------------------------------------------------------
-# Pallas per-shard compute (1-D row-slab decomposition)
-# ---------------------------------------------------------------------------
-
-
-def _halo_rows(x: jnp.ndarray, px: int, K: int):
-    """K-deep row halos from the up/down mesh neighbors (full-width slabs:
-    no column exchange needed).  Wall shards receive zeros (dead rows — the
-    kernels' wall BC owns those positions)."""
-    m, side = x.shape
-    dt = x.dtype
-    if px > 1:
-        fwd = [(i, i + 1) for i in range(px - 1)]
-        bwd = [(i + 1, i) for i in range(px - 1)]
-        top = jax.lax.ppermute(x[-K:, :], "x", fwd)
-        bottom = jax.lax.ppermute(x[:K, :], "x", bwd)
-    else:
-        top = jnp.zeros((K, side), dt)
-        bottom = jnp.zeros((K, side), dt)
-    return top, bottom
-
-
-def _step_local_pallas(cfg: SimConfig, px: int, audited: bool,
-                       state: FluidState, src: Sources):
-    """Per-shard step through the Pallas slab kernels
-    (``kernels.pallas_sharded``).  Same composition as ``_step_local``;
-    advection is always windowed (the kernels' clamped-gather semantics).
-    ``pressure_solver="multigrid"/"cg"`` compose the slab
-    divergence/gradient kernels with the sharded jnp solvers;
-    ``"chebyshev"`` keeps the fused slab kernels (one-call solve /
-    fused projection with Chebyshev sweeps, ``ops/chebyshev.py``)."""
-    from ..kernels import pallas_sharded as ps
-    from ..kernels.pallas_ops import _ceil8
-
-    n, dtim = cfg.n, cfg.dt
-    it = cfg.jacobi_iters
-    side = n + 2
-    m = side // px
-    cmax = cfg.max_courant
-    fuse = cfg.fuse_sweeps or 20
-    fast = cfg.fast_math
-
-    ax = jax.lax.axis_index("x")
-    flags = jnp.stack(
-        [
-            (ax == 0).astype(jnp.int32),
-            (ax == px - 1).astype(jnp.int32),
-            (ax * m).astype(jnp.int32),
-        ]
-    )
-
-    def diffuse(b, x_init, rhs, alpha, beta, iters, zero_init=False,
-                use_fast=False):
-        x = x_init
-        first = True
-        remaining = iters
-        while remaining > 0:
-            s = min(fuse, remaining)
-            K = _ceil8(s + 1)
-            rt, rb = _halo_rows(rhs, px, K)
-            rhs_ext = jnp.concatenate([rt, rhs, rb], axis=0)
-            zi = zero_init and first
-            if zi:
-                x_ext = rhs_ext  # ignored by the kernel
-            else:
-                xt, xb = _halo_rows(x, px, K)
-                x_ext = jnp.concatenate([xt, x, xb], axis=0)
-            # NOTE: a split-operand variant that skips these concats
-            # exists (ps.fused_jacobi_slab_split) and is bit-exact, but
-            # A/B on hardware measured NO gain (split 4.57/4.71 vs concat
-            # 4.67/4.45 ms/step at 2048²/1×1) — XLA's async scheduling
-            # already hides the ext-assembly copies behind compute, so the
-            # simpler concat path stays wired (same policy as the u+v
-            # pair kernel).
-            x = ps.fused_jacobi_slab(
-                b, x_ext, rhs_ext, flags, m=m, K=K, alpha=float(alpha),
-                beta=float(beta), sweeps=s, zero_init=zi,
-                fast=use_fast,
-            )
-            first = False
-            remaining -= s
-        return x
-
-    def diffuse_cheby(b, x_init, rhs, alpha, beta, iters):
-        # Chebyshev diffusion solve in ONE slab call (the three-term
-        # recurrence keeps x_{k-1} in VMEM; chunking across calls would
-        # need the 3-D chain's cross-call carry).  Falls back to the jnp
-        # sharded twin when the halo doesn't fit the slab.
-        K = _ceil8(iters + 1)
-        if K <= m and ps.slab_supported(m, side):
-            rt, rb = _halo_rows(rhs, px, K)
-            rhs_ext = jnp.concatenate([rt, rhs, rb], axis=0)
-            xt, xb = _halo_rows(x_init, px, K)
-            x_ext = jnp.concatenate([xt, x_init, xb], axis=0)
-            return ps.fused_jacobi_slab(
-                b, x_ext, rhs_ext, flags, m=m, K=K, alpha=float(alpha),
-                beta=float(beta), sweeps=iters, zero_init=False,
-                fast=fast, cheby_rho=cfg.cheby_rho,
-            )
-        return _cheby_diffuse_local(b, x_init, rhs, alpha, beta, iters,
-                                    cfg.cheby_rho, n, px, 1)
-
-    # Diffusion solver selection — mirrors
-    # models.stable_fluids_2d._diffusion_args ("chebyshev" accelerates all
-    # three solves, "chebyshev-dens" only the density one).
-    vel_cheby = cfg.diffusion_solver == "chebyshev"
-    dens_cheby = cfg.diffusion_solver in ("chebyshev", "chebyshev-dens")
-    k_dens = (cfg.cheby_iters if cfg.diffusion_solver == "chebyshev"
-              else cfg.cheby_dens_iters)
-
-    # Chebyshev pressure: the whole solve must fit in ONE slab call (the
-    # three-term recurrence would need x_{k-1} carried across halo
-    # exchanges otherwise) — cheby_iters <= ~10 fits a K=ceil8(iters+1)
-    # halo comfortably on any shard with m >= K.
-    cheby_p = cfg.pressure_solver == "chebyshev"
-    it_p = cfg.press_cheby_iters if cheby_p else it
-    rho_p = cfg.cheby_rho if cheby_p else None
-
-    if cfg.pressure_solver == "multigrid":
-        def solve(div):
-            return _mg_local(div, cfg.mg_cycles, n, px, 1)
-    elif cfg.pressure_solver == "cg":
-        def solve(div):
-            return _cg_local(div, cfg.cg_iters, n, px, 1)
-    elif cheby_p:
-        Kc = _ceil8(it_p + 1)
-        one_call = Kc <= m and ps.slab_supported(m, side)
-
-        def solve(div):
-            if not one_call:  # deep halo beyond the slab: jnp fallback
-                return _cheby_pressure_local(div, it_p, rho_p, n, px, 1)
-            rt, rb = _halo_rows(div, px, Kc)
-            div_ext = jnp.concatenate([rt, div, rb], axis=0)
-            return ps.fused_jacobi_slab(
-                0, div_ext, div_ext, flags, m=m, K=Kc, alpha=1.0,
-                beta=4.0, sweeps=it_p, zero_init=True, cheby_rho=rho_p,
-            )
-    else:
-        def solve(div):
-            return diffuse(0, None, div, 1.0, 4.0, it, zero_init=True)
-
-    # Jacobi/Chebyshev projections fuse div + sweeps + gradient into ONE
-    # slab kernel with ONE K-deep u/v halo exchange (p and div never leave
-    # VMEM) — the SPMD port of the unsharded fused projection, replacing
-    # three kernels and three exchanges.  mg/cg (and shapes with no viable
-    # fused strip) keep the composed path.
-    use_fused_proj = (
-        (cfg.pressure_solver == "jacobi" or cheby_p)
-        and ps.project_slab_supported(m, side, it_p)
-    )
-
-    def project(u, v):
-        if use_fused_proj:
-            Kp = ps.project_slab_margin(it_p)
-            ut, ub = _halo_rows(u, px, Kp)
-            vt, vb = _halo_rows(v, px, Kp)
-            u_ext = jnp.concatenate([ut, u, ub], axis=0)
-            v_ext = jnp.concatenate([vt, v, vb], axis=0)
-            return ps.fused_project_slab(u_ext, v_ext, flags, n=n,
-                                         iters=it_p, m=m, K=Kp,
-                                         cheby_rho=rho_p)
-        vt, vb = _halo_rows(v, px, 8)
-        div = ps.divergence_slab(u, v, vt, vb, flags, n)
-        p = solve(div)
-        pt, pb = _halo_rows(p, px, 8)
-        return ps.gradient_slab(u, v, p, pt, pb, flags, n)
-
-    def ext_for_advect(d0, tm):
-        C = cmax + 1
-        t, bq = _halo_rows(d0, px, C)
-        z = jnp.zeros((tm - C, side), d0.dtype)
-        return jnp.concatenate([z, t, d0, bq, z], axis=0)
-
-    def advect_one(b, d0, u, v):
-        tm = ps.advect_slab_tm(m, side, 1)
-        de = ext_for_advect(d0, tm)
-        (out,) = ps.advect_slab(
-            (b,), (de,), u, v, flags, dt=dtim, n=n, cmax=cmax, m=m,
-            self_adv=False,
-        )
-        return out
-
-    def advect_pair_self(u0, v0):
-        tm = ps.advect_slab_tm(m, side, 2)
-        if tm is None:  # very wide grids: two singles
-            return advect_one(1, u0, u0, v0), advect_one(2, v0, u0, v0)
-        ue = ext_for_advect(u0, tm)
-        ve = ext_for_advect(v0, tm)
-        return ps.advect_slab(
-            (1, 2), (ue, ve), None, None, flags, dt=dtim, n=n, cmax=cmax,
-            m=m, self_adv=True,
-        )
-
-    dt_c = jnp.asarray(dtim, state.u.dtype)
-    u = state.u + dt_c * src.u
-    v = state.v + dt_c * src.v
-    alpha = cfg.diffusion_alpha_visc
-    beta = 1.0 + 4.0 * alpha
-    if vel_cheby:
-        u = diffuse_cheby(1, src.u, u, alpha, beta, cfg.cheby_iters)
-        v = diffuse_cheby(2, src.v, v, alpha, beta, cfg.cheby_iters)
-    else:
-        u = diffuse(1, src.u, u, alpha, beta, it, use_fast=fast)
-        v = diffuse(2, src.v, v, alpha, beta, it, use_fast=fast)
-    u, v = project(u, v)
-    d_vel = _disp_global(u, v, dtim * n) if audited else None
-    u0, v0 = u, v
-    u, v = advect_pair_self(u0, v0)
-    u, v = project(u, v)
-    d_dens = _disp_global(u, v, dtim * n) if audited else None
-
-    alpha = cfg.diffusion_alpha_diff
-    beta = 1.0 + 4.0 * alpha
-    if not dens_cheby and it <= fuse and ps.dens_slab_supported(m, side, it,
-                                                                cmax):
-        # Fused density pair: ONE K-deep src/base exchange + one kernel
-        # (add_source folded into the rhs, diffusion sweeps in VMEM, the
-        # gather reads the diffused field straight out of the sweep
-        # window) — the SPMD port of the unsharded diffuse_advect fusion.
-        Kd = ps.dens_slab_margin(it, cmax)
-        st_, sb_ = _halo_rows(src.dens, px, Kd)
-        bt_, bb_ = _halo_rows(state.dens, px, Kd)
-        dens = ps.fused_dens_slab(
-            0,
-            jnp.concatenate([st_, src.dens, sb_], axis=0),
-            jnp.concatenate([bt_, state.dens, bb_], axis=0),
-            u, v, flags, alpha=alpha, beta=beta, iters=it, dt=dtim, n=n,
-            cmax=cmax, m=m, K=Kd, fast=fast,
-        )
-    else:
-        dens = state.dens + dt_c * src.dens
-        if dens_cheby:
-            # The fused dens slab kernel is Jacobi-only; the cheby modes
-            # take the composed route (one-call cheby solve + advect).
-            dens = diffuse_cheby(0, src.dens, dens, alpha, beta, k_dens)
-        else:
-            dens = diffuse(0, src.dens, dens, alpha, beta, it,
-                           use_fast=fast)
-        dens = advect_one(0, dens, u, v)
-    out = FluidState(dens=dens, u=u, v=v)
-    if audited:
-        return out, jnp.maximum(d_vel, d_dens)
-    return out
-
-
-def _pallas_shard_viable(cfg: SimConfig, px: int, py: int) -> bool:
-    from ..kernels import pallas_ops, pallas_sharded as ps
-
-    side = cfg.n + 2
-    if py != 1 or side % px or cfg.ndim != 2 or cfg.dtype != jnp.float32:
-        return False
-    m = side // px
-    if pallas_ops.INTERPRET:
-        return True
-    return ps.slab_supported(m, side) and m >= cfg.max_courant + 1
-
-
-# ---------------------------------------------------------------------------
 # Step composition (local blocks) — mirrors models/stable_fluids_2d.py
 # ---------------------------------------------------------------------------
 
@@ -919,66 +666,38 @@ def _step_local(cfg: SimConfig, px: int, py: int, advect_mode: str,
 
 def make_sharded_step_fn(
     cfg: SimConfig, mesh: Mesh, *, advect_mode: str = "auto",
-    shard_backend: str = "auto", audited: bool = False,
+    audited: bool = False,
 ) -> Callable[[FluidState, Sources], FluidState]:
-    """A jitted multi-chip step.  Inputs/outputs are global padded grids
+    """A jitted multi-device step.  Inputs/outputs are global padded grids
     sharded ``P("x", "y")`` over ``mesh``; requires ``(n+2)`` divisible by
     both mesh dimensions (pick n = multiple-of-mesh minus 2, like the
-    reference's ``N = 2^13 - 2``, ``FluidSequential.c:6``).
+    reference's ``N = 2^13 - 2``, ``FluidSequential.c:6``).  Each shard runs
+    the plain jnp local ops.
 
     ``advect_mode``: "windowed" exchanges a ``max_courant``-deep halo per
-    advection (the Pallas kernels' clamped-window semantics —
-    neighbor-only ICI traffic, the scalable default); "exact" all-gathers
-    the advected field (reference semantics for ANY displacement, at
-    O(grid) collective traffic per advection — a correctness mode, not a
-    scale mode).  "auto" (default) picks windowed whenever every shard can
-    host the ``max_courant+1``-deep halo, exact otherwise (tiny shards).
-
-    ``shard_backend``: which compute path runs *inside* each shard —
-    "reference" = jnp local ops; "pallas" = the slab kernels
-    (``kernels.pallas_sharded``; f32, always-windowed advection, row
-    slabs).  2-D meshes qualify for pallas too: the devices are re-meshed
-    (px·py, 1) and the grid row-flattened onto them (see the comment in
-    the body — column halos are TPU-hostile, flattening is strictly
-    better).  "auto" = pallas when ``cfg.backend`` asks for it and the
-    shape qualifies, jnp otherwise.
+    advection (``ops.advect_windowed`` semantics — neighbor-only traffic,
+    the scalable default); "exact" all-gathers the advected field
+    (reference semantics for ANY displacement, at O(grid) collective
+    traffic per advection — a correctness mode, not a scale mode).  "auto"
+    (default) picks windowed whenever every shard can host the
+    ``max_courant+1``-deep halo, exact otherwise (tiny shards).
 
     ``audited=True`` returns ``(state, max_displacement)`` per step — the
-    multi-chip twin of ``models.stable_fluids_2d.step_audited`` (local max
-    reduced with ``lax.pmax`` across the mesh), so sharded bench/datagen
+    multi-device twin of ``models.stable_fluids_2d.step_audited`` (local
+    max reduced with ``lax.pmax`` across the mesh), so sharded bench/datagen
     can assert the exact-gather regime (``ops/advect.py`` condition:
-    displacement < ``max_courant``) exactly like the single-chip path.
+    displacement < ``max_courant``) exactly like the single-device path.
 
-    The returned callable carries ``.shard_backend`` (``"pallas"`` or
-    ``"reference"``) — which per-shard compute path was actually selected.
+    The returned callable carries ``.advect_mode`` (the mode selected),
+    ``.mesh``, and ``.backend`` / ``.backend_reason`` as the single-device
+    step does: the shards never take the Jacobi kernel, so ``auto``
+    declines it and ``hopper`` raises.
     """
     if advect_mode not in ("auto", "exact", "windowed"):
         raise ValueError(f"unknown advect_mode {advect_mode!r}")
-    if shard_backend not in ("auto", "reference", "pallas"):
-        raise ValueError(f"unknown shard_backend {shard_backend!r}")
+    backend, reason = resolve_backend(cfg, SHARDED_PLAIN)
     px, py = mesh.shape["x"], mesh.shape["y"]
     side = cfg.n + 2
-
-    # 2-D meshes take the slab path by FLATTENING: a (px, py) device mesh
-    # does not force a 2-D data decomposition — the same devices re-meshed
-    # (px*py, 1) run the row-slab kernels verbatim (halo ppermute over the
-    # flattened axis), which column-splitting could never match on TPU:
-    # lane-axis halo margins round up to the 128-lane tile, so a 4-way
-    # column split pays +50% VMEM and sweep work where a row split pays
-    # +9% (docs/PERFORMANCE.md; kernels/pallas_sharded.py module note).
-    # Callers' (px, py)-block-sharded inputs are resharded by jit once;
-    # outputs stay row-sharded thereafter.
-    if (
-        py > 1
-        and (shard_backend == "pallas"
-             or (shard_backend == "auto" and cfg.backend == "pallas"))
-        and advect_mode in ("auto", "windowed")
-        and side % (px * py) == 0
-        and side // (px * py) >= cfg.max_courant + 1
-        and _pallas_shard_viable(cfg, px * py, 1)
-    ):
-        px, py = px * py, 1
-        mesh = Mesh(mesh.devices.reshape(px, 1), ("x", "y"))
     if side % px or side % py:
         raise ValueError(
             f"grid side {side} not divisible by mesh shape ({px}, {py})"
@@ -1002,34 +721,9 @@ def make_sharded_step_fn(
                 f"Use advect_mode='exact' or a coarser mesh."
             )
 
-    use_pallas = False
-    if shard_backend == "pallas":
-        if not _pallas_shard_viable(cfg, px, py):
-            raise ValueError(
-                f"shard_backend='pallas' needs row slabs (2-D meshes are "
-                f"row-flattened automatically when they qualify): "
-                f"(n+2) % n_devices == 0, shards of >= max_courant+1 rows "
-                f"with (n+2)/n_devices % 8 == 0, float32 and ndim=2; got "
-                f"mesh ({px}, {py}), n={cfg.n}"
-            )
-        if advect_mode == "exact":
-            raise ValueError(
-                "shard_backend='pallas' advection is always windowed; pass "
-                "advect_mode='windowed' (or shard_backend='reference' for "
-                "exact all-gather advection)"
-            )
-        use_pallas = True
-    elif shard_backend == "auto":
-        use_pallas = (
-            cfg.backend == "pallas"
-            and advect_mode == "windowed"
-            and _pallas_shard_viable(cfg, px, py)
-        )
-
     if cfg.pressure_solver == "multigrid":
-        # Restriction pair-alignment needs even local blocks (both paths;
-        # the pallas path has py == 1, so its column size is the full side).
-        mloc, kloc = side // px, side // (1 if use_pallas else py)
+        # Restriction pair-alignment needs even local blocks.
+        mloc, kloc = side // px, side // py
         if (mloc % 2) or (kloc % 2):
             raise ValueError(
                 "sharded multigrid needs even local block sizes "
@@ -1042,28 +736,18 @@ def make_sharded_step_fn(
     src_specs = Sources(dens=spec, u=spec, v=spec, w=None)
     out_specs = (state_specs, P()) if audited else state_specs
 
-    if use_pallas:
-        local = functools.partial(_step_local_pallas, cfg, px, audited)
-    else:
-        local = functools.partial(_step_local, cfg, px, py, advect_mode,
-                                  audited)
-    sharded = jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(state_specs, src_specs),
+    local = functools.partial(_step_local, cfg, px, py, advect_mode, audited)
+    jitted = jax.jit(jax.shard_map(
+        local, mesh=mesh, in_specs=(state_specs, src_specs),
         out_specs=out_specs,
-        # pallas_call outputs carry no varying-mesh-axes metadata; the
-        # per-shard program is manifestly per-device, so skip the vma check.
-        check_vma=not use_pallas,
-    )
-    jitted = jax.jit(sharded)
+    ))
 
     def step_fn(state, src):
         return jitted(state, src)
 
-    step_fn.shard_backend = "pallas" if use_pallas else "reference"
     step_fn.advect_mode = advect_mode
-    step_fn.mesh = mesh  # the mesh actually used (flattened for 2-D pallas)
+    step_fn.mesh = mesh
+    step_fn.backend, step_fn.backend_reason = backend, reason
     return step_fn
 
 

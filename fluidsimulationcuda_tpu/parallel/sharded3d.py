@@ -1,24 +1,20 @@
-"""Multi-chip z-slab decomposition of the 3-D smoke-volume step.
+"""Multi-device z-slab decomposition of the 3-D smoke-volume step.
 
 The 3-D twin of ``parallel.sharded``: the padded ``(n+2)³`` volume is
 partitioned into z-slabs over a 1-D device mesh; every stencil sweep
 exchanges 1-deep *planes* with the two z-neighbors via ``lax.ppermute``
-(neighbor-only ICI traffic), and Jacobi solves exchange K-deep plane halos
+(neighbor-only traffic), and Jacobi solves exchange K-deep plane halos
 once per K fused sweeps — the same fused-sweep margin scheme as the 2-D
 path (``parallel/sharded.py:_diffuse_local``), one dimension up.
 
-Why slabs and not pencils/blocks: a z-slab keeps every (y, x) plane whole,
-so the lane (x) and sublane (y) axes stay contiguous on each chip — all
-in-plane stencil work is local and XLA-vectorized, and the only
-communication surface is the z-plane, the smallest possible per-chip
-boundary at (n+2)² cells.  Splitting y or x instead would put halo
-exchange on the sublane/lane axes, which the 2-D study measured as
-TPU-hostile (lane-axis margins round up to the 128-lane tile —
-``kernels/pallas_sharded.py`` module note).  This is the chip-level
-generalization of the reference's CUDA halo tiling
-(``smPar/FluidParallelBlockPerElement-SM.cu:169-192``) applied to the 3-D
-solver the reference never built (its future-work direction; the 2-D spec
-it generalizes is ``sequential/FluidSequential.c:107-141``).
+Why slabs and not pencils/blocks: a z-slab keeps every (y, x) plane whole
+and contiguous on each device — all in-plane stencil work is local, and
+the only communication surface is the z-plane, at (n+2)² cells per
+neighbor.  This is the device-level generalization of the reference's
+CUDA halo tiling (``smPar/FluidParallelBlockPerElement-SM.cu:169-192``)
+applied to the 3-D solver the reference never built (its future-work
+direction; the 2-D spec it generalizes is
+``sequential/FluidSequential.c:107-141``).
 
 Numerics are the 3-D jnp ops (``ops/three_d.py``) evaluated per slab:
 the same per-cell expressions, so parity with the unsharded ``step3`` is
@@ -36,6 +32,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.config import SimConfig
 from ..core.state import FluidState, Sources
+from ..kernels.dispatch import resolve_backend
+from .sharded import SHARDED_PLAIN
 
 __all__ = ["make_sharded_step_fn_3d", "shard_state_3d"]
 
@@ -176,7 +174,7 @@ def _diffuse3_local(b, x_init, rhs, alpha, beta, iters, n, pz, fuse=8):
 
     # rhs is chunk-invariant: exchange its K-deep halo ONCE, not per chunk
     # (with iters=20, K=8 that is 3 chunks -> 2 redundant plane exchanges
-    # per solve otherwise; the Pallas twin already hoists it).
+    # per solve otherwise).
     rhs_ext = _extend_z(rhs, pz, K)
 
     def chunk(x, sweeps_in_chunk):
@@ -513,253 +511,16 @@ def _step3_local(cfg: SimConfig, pz: int, advect_mode: str, audited: bool,
     return out
 
 
-def _apply_bnd3_direct(b: int, x: jnp.ndarray, is_top, is_bot):
-    """``_apply_bnd3_coords`` semantics via in-place ``.at`` chains instead
-    of the mask/concat cascade — XLA fuses the chain into ~2 passes where
-    the where/concat form materializes a full-volume copy per shifted view
-    (measured ~4-5 ms/call at 256³ vs ~0.3 ms for this form).  z-wall
-    pieces are selected per shard with scalar ``jnp.where`` (one traced
-    program serves all shards).  Values are identical: same cascade order
-    (faces → edges → corners), same averages."""
-    dt = x.dtype
-    flip = _AXIS_OF_MODE.get(b)
-    sz = jnp.asarray(-1.0 if flip == 0 else 1.0, dt)
-    sy = jnp.asarray(-1.0 if flip == 1 else 1.0, dt)
-    sx = jnp.asarray(-1.0 if flip == 2 else 1.0, dt)
-    half = jnp.asarray(0.5, dt)
-    third = jnp.asarray(1.0 / 3.0, dt)
-
-    # Faces (z conditional on wall shards; y/x on every shard).
-    x = x.at[0].set(jnp.where(is_top, sz * x[1], x[0]))
-    x = x.at[-1].set(jnp.where(is_bot, sz * x[-2], x[-1]))
-    x = x.at[:, 0, :].set(sy * x[:, 1, :])
-    x = x.at[:, -1, :].set(sy * x[:, -2, :])
-    x = x.at[:, :, 0].set(sx * x[:, :, 1])
-    x = x.at[:, :, -1].set(sx * x[:, :, -2])
-
-    # Edges: mean of the 2 adjacent (finalized) face cells.
-    # y-x edges exist on every plane (2 ghost coords y,x).
-    x = x.at[:, 0, 0].set(half * (x[:, 1, 0] + x[:, 0, 1]))
-    x = x.at[:, 0, -1].set(half * (x[:, 1, -1] + x[:, 0, -2]))
-    x = x.at[:, -1, 0].set(half * (x[:, -2, 0] + x[:, -1, 1]))
-    x = x.at[:, -1, -1].set(half * (x[:, -2, -1] + x[:, -1, -2]))
-    # z-y and z-x edges (z ghost + one in-plane ghost): wall shards only.
-    for zi, zn, flag in ((0, 1, is_top), (-1, -2, is_bot)):
-        for yi, yn in ((0, 1), (-1, -2)):
-            x = x.at[zi, yi, 1:-1].set(jnp.where(
-                flag, half * (x[zn, yi, 1:-1] + x[zi, yn, 1:-1]),
-                x[zi, yi, 1:-1]))
-        for xi, xn in ((0, 1), (-1, -2)):
-            x = x.at[zi, 1:-1, xi].set(jnp.where(
-                flag, half * (x[zn, 1:-1, xi] + x[zi, 1:-1, xn]),
-                x[zi, 1:-1, xi]))
-    # Corners (3 ghost coords): mean of the 3 adjacent just-set edges.
-    for zi, zn, flag in ((0, 1, is_top), (-1, -2, is_bot)):
-        for yi, yn in ((0, 1), (-1, -2)):
-            for xi, xn in ((0, 1), (-1, -2)):
-                x = x.at[zi, yi, xi].set(jnp.where(
-                    flag,
-                    third * (x[zn, yi, xi] + x[zi, yn, xi] + x[zi, yi, xn]),
-                    x[zi, yi, xi]))
-    return x
-
-
-def _divergence3_fast(u, v, w, n, pz, is_top, is_bot):
-    """``_divergence3_local`` semantics via slice arithmetic + one pad
-    (the mask/concat form costs ~6 full-volume copies)."""
-    dt = u.dtype
-    we = _extend_z(w, pz, 1)
-    h = jnp.asarray(1.0, dt) / n
-    d = (jnp.asarray(-0.5, dt) * h) * (
-        (u[:, 1:-1, 2:] - u[:, 1:-1, :-2])
-        + (v[:, 2:, 1:-1] - v[:, :-2, 1:-1])
-        + (we[2:, 1:-1, 1:-1] - we[:-2, 1:-1, 1:-1])
-    )
-    d = jnp.pad(d, ((0, 0), (1, 1), (1, 1)))
-    return _apply_bnd3_direct(0, d, is_top, is_bot)
-
-
-def _gradient3_fast(u, v, w, p, n, pz, is_top, is_bot):
-    dt = u.dtype
-    pe = _extend_z(p, pz, 1)
-    h = jnp.asarray(1.0, dt) / n
-    half = jnp.asarray(0.5, dt)
-    un = u[:, 1:-1, 1:-1] - (half * (p[:, 1:-1, 2:] - p[:, 1:-1, :-2])) / h
-    vn = v[:, 1:-1, 1:-1] - (half * (p[:, 2:, 1:-1] - p[:, :-2, 1:-1])) / h
-    wn = w[:, 1:-1, 1:-1] - (
-        half * (pe[2:, 1:-1, 1:-1] - pe[:-2, 1:-1, 1:-1])
-    ) / h
-    pad = ((0, 0), (1, 1), (1, 1))
-    return (
-        _apply_bnd3_direct(1, jnp.pad(un, pad), is_top, is_bot),
-        _apply_bnd3_direct(2, jnp.pad(vn, pad), is_top, is_bot),
-        _apply_bnd3_direct(3, jnp.pad(wn, pad), is_top, is_bot),
-    )
-
-
-def _step3_local_pallas(cfg: SimConfig, pz: int, audited: bool,
-                        state: FluidState, src: Sources):
-    """Per-shard 3-D step through the Pallas slab kernels
-    (``kernels.pallas_sharded_3d``).  Same composition as ``_step3_local``
-    with windowed advection; divergence/gradient stay jnp-local (pure
-    streaming stencils — the 100 Jacobi sweeps and 4 gathers are where
-    the kernels pay), in the fused ``.at``-chain form."""
-    import jax
-
-    from ..kernels import pallas_sharded_3d as p3
-
-    n, dtim = cfg.n, cfg.dt
-    it = cfg.jacobi_iters
-    side = n + 2
-    mz = side // pz
-    cmax = cfg.max_courant
-    fuse = cfg.fuse_sweeps or 20
-    fast = cfg.fast_math
-
-    az = jax.lax.axis_index("z")
-    is_top = az == 0
-    is_bot = az == pz - 1
-    flags = jnp.stack(
-        [
-            is_top.astype(jnp.int32),
-            is_bot.astype(jnp.int32),
-            (az * mz).astype(jnp.int32),  # global z of slab plane 0
-        ]
-    )
-
-    _, Kplan = p3.jacobi3_slab_plan(mz, side, min(fuse, it))
-    if Kplan is None:  # interpret mode on tiny slabs
-        Kplan = max(1, min(it, mz - 1))
-    H = Kplan + 1
-
-    def diffuse(b, x_init, rhs, alpha, beta, iters, zero_init=False):
-        x = x_init
-        first = True
-        remaining = iters
-        rhs_ext = _extend_z(rhs, pz, H)  # rhs is chunk-invariant: one halo
-        while remaining > 0:
-            s = min(Kplan, remaining)
-            zi = zero_init and first
-            x_ext = rhs_ext if zi else _extend_z(x, pz, H)
-            x = p3.fused_jacobi3_slab(
-                b, x_ext, rhs_ext, flags, mz=mz, H=H, alpha=float(alpha),
-                beta=float(beta), sweeps=s, zero_init=zi, fast=fast,
-            )
-            first = False
-            remaining -= s
-        return x
-
-    # Chebyshev chain (the 3-D compensated perf mode's solves): segments
-    # of the slab chain kernel, both iterates re-exchanged per segment
-    # (see kernels.pallas_sharded_3d.fused_cheby3_slab).
-    cheby_p = cfg.cheby_rho if cfg.pressure_solver == "chebyshev" else None
-    if cheby_p is not None or cfg.diffusion_solver != "jacobi":
-        from ..ops.chebyshev import cheby_omegas
-
-        _, Kc = p3.cheby3_slab_plan(mz, side, min(fuse, 20))
-        if Kc is None:  # interpret mode on tiny slabs
-            Kc = max(1, min(20, mz - 1))
-        Hc = Kc + 1
-
-    def diffuse_cheby(b, x_init, rhs, alpha, beta, iters, rho,
-                      zero_init=False):
-        ws_all = [None] + [float(w) for w in
-                           cheby_omegas(float(rho), iters)]
-        rhs_ext = _extend_z(rhs, pz, Hc)
-        x, xm = x_init, None
-        done = 0
-        first = True
-        while done < iters:
-            s = min(Kc, iters - done)
-            ws = tuple(ws_all[done:done + s])
-            last = done + s >= iters
-            zi = zero_init and first
-            x_ext = rhs_ext if zi else _extend_z(x, pz, Hc)
-            xm_ext = _extend_z(xm, pz, Hc) if xm is not None else None
-            res = p3.fused_cheby3_slab(
-                b, x_ext, xm_ext, rhs_ext, flags, mz=mz, H=Hc,
-                alpha=float(alpha), beta=float(beta), ws=ws, zero_init=zi,
-                fast=fast, carry_in=xm is not None, carry_out=not last,
-            )
-            if last:
-                x = res
-            else:
-                x, xm = res
-            done += s
-            first = False
-        return x
-
-    def advect(b, d0, uu, vv, ww, d0_complete=False):
-        if not d0_complete:
-            # Gather sources include ghost edges/corners; slab-kernel
-            # outputs carry faces only.
-            d0 = _apply_bnd3_direct(b, d0, is_top, is_bot)
-        ext = _extend_z(d0, pz, cmax + 1)
-        out = p3.advect3_flat_slab(ext, uu, vv, ww, flags, dt=dtim, n=n,
-                                   cmax=cmax, mz=mz)
-        # Raw ghost from the kernel; the next consumer is a face-reading
-        # stencil or the final state — derive the full layer.
-        return _apply_bnd3_direct(b, out, is_top, is_bot)
-
-    def project(u, v, w):
-        div = _divergence3_fast(u, v, w, n, pz, is_top, is_bot)
-        if cheby_p is not None:
-            p = diffuse_cheby(0, None, div, 1.0, 6.0, cfg.press_cheby_iters,
-                              cheby_p, zero_init=True)
-        else:
-            p = diffuse(0, None, div, 1.0, 6.0, it, zero_init=True)
-        return _gradient3_fast(u, v, w, p, n, pz, is_top, is_bot)
-
-    def vel_diffuse(b, guess, rhs, alpha, beta):
-        if cfg.diffusion_solver == "chebyshev":
-            return diffuse_cheby(b, guess, rhs, alpha, beta,
-                                 cfg.cheby_iters, cfg.cheby_rho)
-        return diffuse(b, guess, rhs, alpha, beta, it)
-
-    dt_c = jnp.asarray(dtim, state.u.dtype)
-    u = state.u + dt_c * src.u
-    v = state.v + dt_c * src.v
-    w = state.w + dt_c * src.w
-    alpha = cfg.diffusion_alpha_visc
-    beta = 1.0 + 6.0 * alpha
-    u = vel_diffuse(1, src.u, u, alpha, beta)
-    v = vel_diffuse(2, src.v, v, alpha, beta)
-    w = vel_diffuse(3, src.w, w, alpha, beta)
-    u, v, w = project(u, v, w)
-    d_vel = _disp3_global(u, v, w, dtim * n) if audited else None
-    u0, v0, w0 = u, v, w
-    u = advect(1, u0, u0, v0, w0, d0_complete=True)
-    v = advect(2, v0, u0, v0, w0, d0_complete=True)
-    w = advect(3, w0, u0, v0, w0, d0_complete=True)
-    u, v, w = project(u, v, w)
-    d_dens = _disp3_global(u, v, w, dtim * n) if audited else None
-
-    dens = state.dens + dt_c * src.dens
-    alpha = cfg.diffusion_alpha_diff
-    beta = 1.0 + 6.0 * alpha
-    kd = _dens_cheby_iters(cfg)
-    if kd is not None:
-        dens = diffuse_cheby(0, src.dens, dens, alpha, beta, kd,
-                             cfg.cheby_rho)
-    else:
-        dens = diffuse(0, src.dens, dens, alpha, beta, it)
-    dens = advect(0, dens, u, v, w)
-    out = FluidState(dens=dens, u=u, v=v, w=w)
-    if audited:
-        return out, jnp.maximum(d_vel, d_dens)
-    return out
-
-
 def make_sharded_step_fn_3d(
     cfg: SimConfig, mesh: Mesh, *, advect_mode: str = "auto",
-    shard_backend: str = "auto", audited: bool = False,
+    audited: bool = False,
 ) -> Callable[[FluidState, Sources], FluidState]:
-    """A jitted multi-chip 3-D step over z-slabs.
+    """A jitted multi-device 3-D step over z-slabs.
 
     Any mesh shape is accepted and flattened to a 1-D ``("z",)`` mesh of
     all its devices (a z-slab decomposition is inherently 1-D; see the
-    module docstring for why slabs beat pencils on TPU).  Inputs/outputs
-    are global padded volumes sharded ``P("z")`` on axis 0; requires
+    module docstring for why slabs).  Inputs/outputs are global padded
+    volumes sharded ``P("z")`` on axis 0; requires
     ``(n+2)`` divisible by the device count with >= 2 planes per shard
     (ghost-plane mirrors read the adjacent interior plane locally) and
     >= ``max_courant + 1`` planes for windowed advection.
@@ -772,9 +533,13 @@ def make_sharded_step_fn_3d(
     ``audited=True`` returns ``(state, max_displacement)`` — the 3-D twin
     of the 2-D sharded audit (``pmax`` over the mesh), asserting the
     exact-gather regime condition displacement < ``max_courant``.
+
+    Like the 2-D sharded step, the callable carries ``.backend`` /
+    ``.backend_reason``; ``hopper`` raises.
     """
     if cfg.ndim != 3:
         raise ValueError("make_sharded_step_fn_3d requires cfg.ndim == 3")
+    backend, reason = resolve_backend(cfg, SHARDED_PLAIN)
     if cfg.pressure_solver not in ("jacobi", "chebyshev"):
         raise ValueError(
             "sharded 3-D supports pressure_solver='jacobi' or 'chebyshev' "
@@ -805,54 +570,23 @@ def make_sharded_step_fn_3d(
             f"advect_mode='exact' or a coarser mesh."
         )
 
-    if shard_backend not in ("auto", "reference", "pallas"):
-        raise ValueError(f"unknown shard_backend {shard_backend!r}")
-    use_pallas = False
-    if shard_backend != "reference":
-        from ..kernels import pallas_sharded_3d as p3
-
-        viable = (
-            cfg.dtype == jnp.float32
-            and advect_mode == "windowed"
-            and p3.slab3_supported(mz, side, cfg.max_courant)
-        )
-        if shard_backend == "pallas":
-            if not viable:
-                raise ValueError(
-                    "shard_backend='pallas' (3-D) needs float32, windowed "
-                    f"advection and viable slab plans; got mz={mz}, "
-                    f"side={side}, cmax={cfg.max_courant}, "
-                    f"advect_mode={advect_mode}"
-                )
-            use_pallas = True
-        else:  # auto: pallas when the single-chip backend asks for it
-            use_pallas = viable and cfg.backend == "pallas"
-
     spec = P("z")
     state_specs = FluidState(dens=spec, u=spec, v=spec, w=spec)
     src_specs = Sources(dens=spec, u=spec, v=spec, w=spec)
     out_specs = (state_specs, P()) if audited else state_specs
 
-    if use_pallas:
-        local = functools.partial(_step3_local_pallas, cfg, pz, audited)
-    else:
-        local = functools.partial(_step3_local, cfg, pz, advect_mode,
-                                  audited)
-    sharded = jax.shard_map(
+    local = functools.partial(_step3_local, cfg, pz, advect_mode, audited)
+    jitted = jax.jit(jax.shard_map(
         local, mesh=zmesh, in_specs=(state_specs, src_specs),
         out_specs=out_specs,
-        # pallas_call outputs carry no varying-mesh-axes metadata (cf. the
-        # 2-D factory).
-        check_vma=not use_pallas,
-    )
-    jitted = jax.jit(sharded)
+    ))
 
     def step_fn(state, src):
         return jitted(state, src)
 
     step_fn.advect_mode = advect_mode
-    step_fn.shard_backend = "pallas" if use_pallas else "reference"
     step_fn.mesh = zmesh
+    step_fn.backend, step_fn.backend_reason = backend, reason
     return step_fn
 
 

@@ -1,8 +1,10 @@
-"""Persistent XLA/Mosaic compilation cache.
+"""Persistent XLA compilation cache.
 
-The solver step compiles ~10 distinct Pallas kernels; on a cold process via
-the remote-compile path that costs minutes.  The persistent cache brings
-repeat startup to ~1s/kernel.  Call early (before first jit execution).
+Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX keeps its cache there by
+itself and no directory is set here.  Otherwise the cache lives at a fixed
+path inside the checkout (``.cache/jax``, git-ignored): the path is part of
+what makes a later run find the entries again.  Call early, before the
+first jit execution.
 """
 from __future__ import annotations
 
@@ -10,15 +12,19 @@ import os
 
 import jax
 
-__all__ = ["enable_compilation_cache"]
+__all__ = ["enable_compilation_cache", "DEFAULT_CACHE_DIR"]
 
-_DEFAULT_DIR = os.path.expanduser("~/.cache/fluidsim_tpu_xla")
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+DEFAULT_CACHE_DIR = os.path.join(_ROOT, ".cache", "jax")
 
 
-def enable_compilation_cache(path: str | None = None) -> None:
-    try:
-        jax.config.update("jax_compilation_cache_dir", path or _DEFAULT_DIR)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # pragma: no cover - older jax
-        pass
+def enable_compilation_cache() -> str:
+    """Turn the persistent cache on; returns the directory it uses."""
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not path:
+        path = DEFAULT_CACHE_DIR
+        jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    return path

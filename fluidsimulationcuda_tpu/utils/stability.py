@@ -2,9 +2,8 @@
 
 ``FluidSequential.c:309`` calls ``//checkStability(u, v);`` — commented
 out, and the function exists nowhere in the reference.  This module is
-that missing subsystem, done the TPU way: one jitted reduction pass
-returning a small pytree of scalars (cheap to compute, cheap to read
-back through the relay).
+that missing subsystem: one jitted reduction pass returning a small
+pytree of scalars (cheap to compute, cheap to read back).
 
 Semi-Lagrangian advection with the solver's clamped gather is
 unconditionally stable in the never-blows-up sense, so "stability" here

@@ -102,63 +102,33 @@ def test_wallclock_smoke():
     assert sec > 0
 
 
-@pytest.mark.slow
-def test_batched_pallas_kernels_match_vmapped_reference():
-    """Batch-polymorphic pallas kernels (interpret mode) == vmapped jnp."""
-    import jax.numpy as jnp
-    from fluidsimulationcuda_tpu.kernels import pallas_ops
-    from fluidsimulationcuda_tpu.models.stable_fluids_2d import step
-    import functools
-
-    prev_interpret = pallas_ops.INTERPRET
-    pallas_ops.INTERPRET = True
-    try:
-        cfg_p = SimConfig(n=30, jacobi_iters=6, backend="pallas", max_courant=2)
-        cfg_r = cfg_p.replace(backend="reference")
-        states, sources = batched_init(jax.random.key(5), cfg_r, 3)
-        got = functools.partial(step, cfg_p)(states, sources)  # direct batched
-        want = jax.vmap(functools.partial(step, cfg_r))(states, sources)
-        for name in ("dens", "u", "v"):
-            np.testing.assert_allclose(
-                np.asarray(getattr(got, name)),
-                np.asarray(getattr(want, name)),
-                rtol=1e-5, atol=2e-5, err_msg=name,
-            )
-    finally:
-        pallas_ops.INTERPRET = prev_interpret
-
-
 @pytest.mark.parametrize("dsolver", ["jacobi", "chebyshev"])
-def test_batched_pallas_chebyshev_matches_vmapped_reference(dsolver):
-    """Chebyshev solves stay on the batch-polymorphic pallas path
-    (``_use_batched_pallas`` admits them) and match the vmapped jnp spec —
-    dsolver='chebyshev' is the full compensated datagen perf mode
-    (``dev/bench_r3u_datagen_perf.py``)."""
-    from fluidsimulationcuda_tpu.kernels import pallas_ops
-    from fluidsimulationcuda_tpu.models.batched import _use_batched_pallas
-    from fluidsimulationcuda_tpu.models.stable_fluids_2d import step
-    import functools
+def test_batched_kernel_plan_matches_vmapped_reference(dsolver, monkeypatch):
+    """The batched step through the Jacobi kernel's launch plan (each
+    launch as its plain specification, batched by vmap as the kernel is)
+    matches the vmapped jnp step — dsolver='chebyshev' is the full
+    compensated datagen perf mode.  Solves of 10 and 9 sweeps take two
+    launches each."""
+    from fluidsimulationcuda_tpu.kernels import dispatch
+    from fluidsimulationcuda_tpu.kernels import hopper_jacobi as hj
+    from fluidsimulationcuda_tpu.models import stable_fluids_2d
 
-    prev_interpret = pallas_ops.INTERPRET
-    pallas_ops.INTERPRET = True
-    try:
-        cfg_p = SimConfig(n=30, jacobi_iters=6, backend="pallas",
-                          max_courant=2, pressure_solver="chebyshev",
-                          diffusion_solver=dsolver,
-                          cheby_iters=5, cheby_rho=0.95)
-        assert _use_batched_pallas(cfg_p)
-        cfg_r = cfg_p.replace(backend="reference")
-        states, sources = batched_init(jax.random.key(6), cfg_r, 3)
-        got = functools.partial(step, cfg_p)(states, sources)
-        want = jax.vmap(functools.partial(step, cfg_r))(states, sources)
-        for name in ("dens", "u", "v"):
-            np.testing.assert_allclose(
-                np.asarray(getattr(got, name)),
-                np.asarray(getattr(want, name)),
-                rtol=1e-5, atol=2e-5, err_msg=name,
-            )
-    finally:
-        pallas_ops.INTERPRET = prev_interpret
+    cfg = SimConfig(n=30, jacobi_iters=10, backend="reference",
+                    pressure_solver="chebyshev",
+                    diffusion_solver=dsolver, cheby_iters=9,
+                    cheby_rho=0.95)
+    states, sources = batched_init(jax.random.key(6), cfg, 3)
+    want = make_batched_step_fn(cfg)(states, sources)
+    monkeypatch.setattr(
+        stable_fluids_2d, "get_ops",
+        lambda c: dispatch.kernel_ops(c, launch_fn=hj.reference_launch))
+    got = make_batched_step_fn(cfg)(states, sources)
+    for name in ("dens", "u", "v"):
+        np.testing.assert_allclose(
+            np.asarray(getattr(got, name)),
+            np.asarray(getattr(want, name)),
+            rtol=1e-5, atol=2e-5, err_msg=name,
+        )
 
 
 def test_generate_trajectories_snapshot_cadence_non_multiple():
@@ -187,7 +157,7 @@ def test_checkpoint_forward_compat_config_fields(tmp_path):
         payload = {k: z[k] for k in z.files}
     meta = json.loads(bytes(payload["_meta"]).decode())
     meta["config"]["some_future_field"] = 42
-    del meta["config"]["fast_math"]
+    del meta["config"]["cheby_dens_iters"]
     payload["_meta"] = np.frombuffer(
         json.dumps(meta).encode(), dtype=np.uint8
     )
@@ -195,7 +165,7 @@ def test_checkpoint_forward_compat_config_fields(tmp_path):
 
     state2, cfg2, step2 = load_checkpoint(p)
     assert step2 == 3
-    assert cfg2.n == 14 and cfg2.fast_math is False
+    assert cfg2.n == 14 and cfg2.cheby_dens_iters == 10
     np.testing.assert_array_equal(np.asarray(state.dens), np.asarray(state2.dens))
 
 
@@ -218,57 +188,33 @@ def test_checkpoint_newer_schema_rejected(tmp_path):
         load_checkpoint(p)
 
 
-@pytest.mark.slow
-def test_select_cmax_batched_picks_small_exact_window():
-    """The probe must pick the smallest window covering the audited
-    displacement, and the windowed trajectory at that cmax must agree with
-    the exact-gather trajectory (the definition of 'exact regime')."""
-    from fluidsimulationcuda_tpu.models.batched import select_cmax_batched
-
-    cfg = SimConfig(n=30, jacobi_iters=4, backend="reference")
-    cmax, probed = select_cmax_batched(
-        jax.random.key(3), cfg, batch=2, probe_steps=4
-    )
-    assert cmax >= 1 and probed + 0.25 < cmax
-
-    win = cfg.replace(max_courant=cmax, advect_mode="windowed")
-    exact = cfg.replace(advect_mode="exact")
-    f_w, _, dmax = generate_trajectories(jax.random.key(3), win, 2, 4)
-    f_e, _, _ = generate_trajectories(jax.random.key(3), exact, 2, 4)
-    assert float(dmax) < cmax
-    np.testing.assert_allclose(
-        np.asarray(f_w.dens), np.asarray(f_e.dens), rtol=1e-5, atol=1e-6
-    )
-
-
 def test_cli_perf_preset_pins_validated_operating_points():
     """--perf must apply exactly the measured compensated operating
     points (2-D: rho=0.9/k_d=10/k_p=14; 3-D: rho=0.85/k_d=10/k_p=12 —
-    docs/PERFORMANCE.md), so preset drift from the validated values is a
+    core/config.py), so preset drift from the validated values is a
     test failure, not a silent numerics change."""
     from types import SimpleNamespace
 
     from fluidsimulationcuda_tpu import __main__ as cli
 
     def ns(ndim):
-        # None = the argparse "not passed" sentinel (ADVICE r4: value
+        # None = the argparse "not passed" sentinel (value
         # equality with defaults missed explicitly-passed defaults)
         return SimpleNamespace(
-            n=126, iters=20, backend="reference", cmax=2, dt=0.016,
+            n=126, iters=20, backend="reference", dt=0.016,
             visc=0.0025, diff=0.1, ndim=ndim, pressure_solver=None,
-            diffusion_solver=None, fast_math=None, cheby_iters=None,
+            diffusion_solver=None, cheby_iters=None,
             cheby_press_iters=None, cheby_rho=None, perf=True)
 
     c2 = cli._cfg(ns(2))
     assert c2.pressure_solver == c2.diffusion_solver == "chebyshev"
-    assert c2.fast_math and c2.cheby_iters == 10
+    assert c2.cheby_iters == 10
     assert (c2.cheby_rho, c2.press_cheby_iters) == (0.9, 14)
     c3 = cli._cfg(ns(3))
     assert (c3.cheby_rho, c3.press_cheby_iters) == (0.85, 12)
     # the 8192² point is size-coupled (core/config.PERF_POINTS_2D)
     big = ns(2)
-    big.n = 8190  # backend stays "reference": the trace-probe in
-    # _perf_feasible_or_fallback is abstract (eval_shape), no allocation
+    big.n = 8190
     c8k = cli._cfg(big)
     assert (c8k.cheby_rho, c8k.cheby_iters, c8k.press_cheby_iters) == \
         (0.96, 12, 14)
@@ -276,7 +222,7 @@ def test_cli_perf_preset_pins_validated_operating_points():
     plain = ns(2)
     plain.perf = False
     c0 = cli._cfg(plain)
-    assert c0.pressure_solver == "jacobi" and not c0.fast_math
+    assert c0.pressure_solver == "jacobi"
     assert (c0.cheby_iters, c0.cheby_press_iters, c0.cheby_rho) == \
         (8, 0, 0.99)
     # ...and explicitly passed ones pass through untouched
@@ -288,7 +234,7 @@ def test_cli_perf_preset_pins_validated_operating_points():
 
 
 def test_cli_perf_warns_on_clobbered_flags(capsys):
-    """ADVICE r3: --perf silently discarded explicit solver flags; now it
+    """--perf once silently discarded explicit solver flags; now it
     must say so."""
     from types import SimpleNamespace
 
@@ -297,15 +243,15 @@ def test_cli_perf_warns_on_clobbered_flags(capsys):
     def ns(rho):
         # fresh namespace each time: _cfg mutates args in place
         return SimpleNamespace(
-            n=126, iters=20, backend="reference", cmax=2, dt=0.016,
+            n=126, iters=20, backend="reference", dt=0.016,
             visc=0.0025, diff=0.1, ndim=2, pressure_solver=None,
-            diffusion_solver=None, fast_math=None, cheby_iters=None,
+            diffusion_solver=None, cheby_iters=None,
             cheby_press_iters=None, cheby_rho=rho, perf=True)
 
     cli._cfg(ns(0.5))
     err = capsys.readouterr().err
     assert "overrides" in err and "--cheby-rho" in err
-    # ADVICE r4: explicitly passing the DEFAULT value must warn too —
+    # explicitly passing the DEFAULT value must warn too —
     # the sentinel (None = not passed) detects it where value equality
     # with the default could not
     cli._cfg(ns(0.99))

@@ -1,10 +1,14 @@
-"""Chebyshev perf-mode solver: jnp spec vs Pallas kernels (interpret mode).
+"""Chebyshev perf-mode solver: jnp spec vs the Jacobi kernel's launch plan.
 
 The acceleration claim itself (cheby-10 residual <= jacobi-20's on all five
-solves at 2048²) is a hardware measurement re-validated on every bench run
-(bench.py perf-mode line); CI pins the numerics: kernel == jnp spec, the
-full cheby step matches across backends, and basic solver sanity.
+solves at 2048²) is re-validated on every bench run (bench.py perf-mode
+line); CI pins the numerics: the kernel's launch plan (every launch as its
+plain specification, ``kernel-plan``; the compiled kernel on the card,
+``hopper``) == the jnp spec, the full cheby step matches across backends,
+and basic solver sanity.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -12,25 +16,36 @@ import jax
 import jax.numpy as jnp
 
 from fluidsimulationcuda_tpu import SimConfig, make_step_fn, reference_init
-from fluidsimulationcuda_tpu.kernels import pallas_ops
+from fluidsimulationcuda_tpu.kernels import dispatch
+from fluidsimulationcuda_tpu.kernels import hopper_jacobi as hj
+from fluidsimulationcuda_tpu.models import stable_fluids_2d
 from fluidsimulationcuda_tpu.ops.chebyshev import (
     cheby_diffuse, cheby_omegas, cheby_pressure_solve,
 )
 
 SIDE = 64
-
-
-@pytest.fixture(autouse=True)
-def _interpret_mode():
-    prev = pallas_ops.INTERPRET
-    pallas_ops.INTERPRET = True
-    yield
-    pallas_ops.INTERPRET = prev
+BACKENDS = ["kernel-plan", pytest.param("hopper", marks=pytest.mark.gpu)]
 
 
 def _grid(seed, side=SIDE, scale=1.0):
     rng = np.random.default_rng(seed)
     return jnp.asarray(rng.uniform(-scale, scale, (side, side)).astype(np.float32))
+
+
+def _ops(backend, request, **kw):
+    cfg = SimConfig(n=SIDE - 2, backend="reference", **kw)
+    if backend == "hopper":
+        request.getfixturevalue("gpu")
+        return dispatch.kernel_ops(cfg)
+    return dispatch.kernel_ops(cfg, launch_fn=hj.reference_launch)
+
+
+def _use_kernel_plan(monkeypatch):
+    """Steps built by ``make_step_fn`` from here on run the kernel's launch
+    plan (each launch as its plain specification) for every config."""
+    monkeypatch.setattr(
+        stable_fluids_2d, "get_ops",
+        lambda cfg: dispatch.kernel_ops(cfg, launch_fn=hj.reference_launch))
 
 
 def test_omega_schedule():
@@ -43,37 +58,39 @@ def test_omega_schedule():
     assert ws[-1] > 2.0 / (1.0 + np.sqrt(1.0 - 0.99**2))
 
 
+@pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("b", [0, 1, 2])
 @pytest.mark.parametrize("iters", [2, 3, 10])
-def test_kernel_matches_spec(b, iters):
+def test_kernel_matches_spec(b, iters, backend, request):
     x, x0 = _grid(1), _grid(2)
     ref = cheby_diffuse(b, x, x0, 0.3, 2.2, iters, 0.99)
-    got = pallas_ops.fused_jacobi(b, x, x0, 0.3, 2.2, iters, cheby_rho=0.99)
+    got = _ops(backend, request).diffuse(b, x, x0, 0.3, 2.2, iters,
+                                         cheby_rho=0.99)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=0, atol=3e-6)
 
 
-def test_pressure_kernel_matches_spec():
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_pressure_kernel_matches_spec(backend, request):
     div = _grid(3, scale=0.01)
     ref = cheby_pressure_solve(div, 10, 0.995)
-    got = pallas_ops.fused_jacobi(0, div, div, 1.0, 4.0, 10,
-                                  zero_init=True, cheby_rho=0.995)
+    got = _ops(backend, request).pressure_solve(div, 10, cheby_rho=0.995)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=0, atol=3e-6)
 
 
 @pytest.mark.parametrize("iters,max_fused", [(10, 3), (9, 4), (12, 5)])
 def test_cheby_chain_matches_single_call(iters, max_fused):
-    """The 2-D cross-call Chebyshev carry (port of the 3-D chain): forcing
-    the per-call sweep budget below ``iters`` must chain kernel calls that
-    carry x_{k-1} across the HBM round-trip and land on the SAME iterate
-    as the unchained solve / the jnp spec (only the w recurrence's f32
-    resume point can differ, by ~1 ulp)."""
+    """The cross-launch Chebyshev carry: forcing the per-launch sweep
+    budget below ``iters`` must chain launches that carry x_{k-1} and
+    the weight schedule and land on the SAME iterate as one launch and
+    as the jnp spec."""
     x, x0 = _grid(8), _grid(9)
     ref = cheby_diffuse(1, x, x0, 0.3, 2.2, iters, 0.95)
-    one = pallas_ops.fused_jacobi(1, x, x0, 0.3, 2.2, iters, cheby_rho=0.95)
-    got = pallas_ops.fused_jacobi(1, x, x0, 0.3, 2.2, iters, cheby_rho=0.95,
-                                  max_fused=max_fused)
+    one = hj.jacobi(1, x, x0, 0.3, 2.2, iters, cheby_rho=0.95,
+                    max_sweeps=hj.MAX_SWEEPS, launch_fn=hj.reference_launch)
+    got = hj.jacobi(1, x, x0, 0.3, 2.2, iters, cheby_rho=0.95,
+                    max_sweeps=max_fused, launch_fn=hj.reference_launch)
     np.testing.assert_allclose(np.asarray(got), np.asarray(one),
                                rtol=0, atol=2e-6)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
@@ -81,33 +98,18 @@ def test_cheby_chain_matches_single_call(iters, max_fused):
 
 
 def test_cheby_chain_pressure_zero_init():
-    """Chained pressure solve (zero initial guess only on the first
-    segment) against the jnp spec."""
+    """Chained pressure solve from the zero guess against the jnp spec."""
     div = _grid(10, scale=0.01)
     ref = cheby_pressure_solve(div, 11, 0.995)
-    got = pallas_ops.fused_jacobi(0, div, div, 1.0, 4.0, 11,
-                                  zero_init=True, cheby_rho=0.995,
-                                  max_fused=4)
+    got = hj.jacobi(0, jnp.zeros_like(div), div, 1.0, 4.0, 11,
+                    cheby_rho=0.995, max_sweeps=4,
+                    launch_fn=hj.reference_launch)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=0, atol=3e-6)
 
 
-def test_cheby_chain_strip_mode():
-    """Chaining through the strip planner (tm < side: windows with real
-    validity margins, the junction DMAs running per strip).  640 is the
-    smallest side the planner strips at; iters kept low for interpret
-    mode."""
-    side = 640
-    x, x0 = _grid(11, side=side), _grid(12, side=side)
-    assert pallas_ops._pick_tm(side) not in (None, side)
-    ref = cheby_diffuse(2, x, x0, 0.2, 1.8, 7, 0.9)
-    got = pallas_ops.fused_jacobi(2, x, x0, 0.2, 1.8, 7, cheby_rho=0.9,
-                                  max_fused=3)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=0, atol=3e-6)
-
-
-def test_fused_projection_cheby_matches_composition():
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_fused_projection_cheby_matches_composition(backend, request):
     u, v = _grid(4, scale=0.1), _grid(5, scale=0.1)
     from fluidsimulationcuda_tpu.ops.project import (
         apply_pressure_gradient, divergence,
@@ -115,23 +117,25 @@ def test_fused_projection_cheby_matches_composition():
     d = divergence(u, v, SIDE - 2)
     p = cheby_pressure_solve(d, 10, 0.99)
     ur, vr = apply_pressure_gradient(u, v, p, SIDE - 2)
-    ug, vg = pallas_ops.fused_project(u, v, SIDE - 2, 10, cheby_rho=0.99)
+    ug, vg = _ops(backend, request).project(u, v, SIDE - 2, 10,
+                                            cheby_rho=0.99)
     np.testing.assert_allclose(np.asarray(ug), np.asarray(ur),
                                rtol=0, atol=3e-6)
     np.testing.assert_allclose(np.asarray(vg), np.asarray(vr),
                                rtol=0, atol=3e-6)
 
 
-def test_cheby_step_backend_parity():
-    """Full perf-mode step: pallas (interpret) vs the reference jnp path."""
+def test_cheby_step_backend_parity(monkeypatch):
+    """Full perf-mode step: the kernel's launch plan vs the reference jnp
+    path.  Ten sweeps per solve take two launches, so ``x_{k-1}`` is
+    carried across a launch boundary."""
     kw = dict(n=SIDE - 2, pressure_solver="chebyshev",
-              diffusion_solver="chebyshev", cheby_iters=6, max_courant=2,
-              advect_mode="windowed")
-    cfg_p = SimConfig(backend="pallas", **kw)
-    cfg_r = SimConfig(backend="reference", **kw)
-    state, src = reference_init(jax.random.key(0), cfg_r)
-    sp = make_step_fn(cfg_p)(state, src)
-    sr = make_step_fn(cfg_r)(state, src)
+              diffusion_solver="chebyshev", cheby_iters=10)
+    cfg = SimConfig(backend="reference", **kw)
+    state, src = reference_init(jax.random.key(0), cfg)
+    sr = make_step_fn(cfg)(state, src)
+    _use_kernel_plan(monkeypatch)
+    sp = make_step_fn(cfg)(state, src)
     for a, b_, name in ((sp.dens, sr.dens, "dens"), (sp.u, sr.u, "u"),
                         (sp.v, sr.v, "v")):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b_),
@@ -176,8 +180,7 @@ def test_chebyshev_dens_velocity_bit_parity():
     BIT-identical to full parity (density is passive in Stam's solver) —
     the construction that exempts the swap from the divergence bar
     (bench.py ``--perf-solver chebyshev+dens`` / audit_dens_residual)."""
-    kw = dict(n=SIDE - 2, jacobi_iters=8, max_courant=2,
-              advect_mode="windowed", backend="reference")
+    kw = dict(n=SIDE - 2, jacobi_iters=8, backend="reference")
     cfg_j = SimConfig(**kw)
     cfg_d = SimConfig(diffusion_solver="chebyshev-dens", cheby_dens_iters=5,
                       **kw)
@@ -193,16 +196,17 @@ def test_chebyshev_dens_velocity_bit_parity():
     assert np.isfinite(np.asarray(s_d.dens)).all()
 
 
-def test_chebyshev_dens_backend_parity():
-    """chebyshev-dens step: pallas (interpret) vs the reference jnp path —
-    the dens solve routes cheby_dens_iters through the fused dens kernel."""
+def test_chebyshev_dens_backend_parity(monkeypatch):
+    """chebyshev-dens step: the kernel's launch plan vs the reference jnp
+    path — the dens solve routes cheby_dens_iters through the kernel, in
+    two launches for 11 sweeps."""
     kw = dict(n=SIDE - 2, jacobi_iters=8, diffusion_solver="chebyshev-dens",
-              cheby_dens_iters=5, max_courant=2, advect_mode="windowed")
-    cfg_p = SimConfig(backend="pallas", **kw)
-    cfg_r = SimConfig(backend="reference", **kw)
-    state, src = reference_init(jax.random.key(9), cfg_r)
-    sp = make_step_fn(cfg_p)(state, src)
-    sr = make_step_fn(cfg_r)(state, src)
+              cheby_dens_iters=11)
+    cfg = SimConfig(backend="reference", **kw)
+    state, src = reference_init(jax.random.key(9), cfg)
+    sr = make_step_fn(cfg)(state, src)
+    _use_kernel_plan(monkeypatch)
+    sp = make_step_fn(cfg)(state, src)
     for a, b_, name in ((sp.dens, sr.dens, "dens"), (sp.u, sr.u, "u"),
                         (sp.v, sr.v, "v")):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b_),
@@ -218,8 +222,7 @@ def test_step_audited_matches_step_under_cheby_modes():
     for dsolver, kws in (("chebyshev", {"cheby_iters": 5}),
                          ("chebyshev-dens", {"cheby_dens_iters": 5})):
         cfg = SimConfig(n=SIDE - 2, jacobi_iters=8, backend="reference",
-                        diffusion_solver=dsolver, max_courant=2,
-                        advect_mode="windowed", **kws)
+                        diffusion_solver=dsolver, **kws)
         state, src = reference_init(jax.random.key(10), cfg)
         want = jax.jit(functools.partial(step, cfg))(state, src)
         got, disp = jax.jit(functools.partial(step_audited, cfg))(state, src)
@@ -230,29 +233,29 @@ def test_step_audited_matches_step_under_cheby_modes():
         assert np.isfinite(float(disp))
 
 
-def test_cheby_press_iters_plumbing():
+@pytest.mark.parametrize("backend", ["reference", "kernel-plan"])
+def test_cheby_press_iters_plumbing(backend, monkeypatch):
     """``cheby_press_iters`` decouples the PRESSURE sweep count (the
     compensated perf mode's knob, bench.py ``--perf-solver compensated``):
     with a jacobi diffusion solver only the pressure solve reads it, so
     (cheby_iters=6, cheby_press_iters=10) must be BIT-identical to
-    (cheby_iters=10) — on both backends."""
+    (cheby_iters=10) — through the plain ops and the kernel's plan."""
+    if backend == "kernel-plan":
+        _use_kernel_plan(monkeypatch)
     kw = dict(n=SIDE - 2, pressure_solver="chebyshev", jacobi_iters=8,
-              max_courant=2, advect_mode="windowed")
-    for backend in ("reference", "pallas"):
-        cfg_a = SimConfig(backend=backend, cheby_iters=6,
-                          cheby_press_iters=10, **kw)
-        cfg_b = SimConfig(backend=backend, cheby_iters=10, **kw)
-        state, src = reference_init(jax.random.key(11), cfg_a)
-        sa = make_step_fn(cfg_a)(state, src)
-        sb = make_step_fn(cfg_b)(state, src)
-        sc = make_step_fn(SimConfig(backend=backend, cheby_iters=6, **kw))(
-            state, src)
-        for name in ("dens", "u", "v"):
-            np.testing.assert_array_equal(
-                np.asarray(getattr(sa, name)), np.asarray(getattr(sb, name)),
-                err_msg=f"{backend}/{name}")
-        d = np.abs(np.asarray(sa.u) - np.asarray(sc.u)).max()
-        assert d > 0, f"{backend}: press_iters=10 should differ from 6"
+              backend="reference")
+    cfg_a = SimConfig(cheby_iters=6, cheby_press_iters=10, **kw)
+    cfg_b = SimConfig(cheby_iters=10, **kw)
+    state, src = reference_init(jax.random.key(11), cfg_a)
+    sa = make_step_fn(cfg_a)(state, src)
+    sb = make_step_fn(cfg_b)(state, src)
+    sc = make_step_fn(SimConfig(cheby_iters=6, **kw))(state, src)
+    for name in ("dens", "u", "v"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(sa, name)), np.asarray(getattr(sb, name)),
+            err_msg=f"{backend}/{name}")
+    d = np.abs(np.asarray(sa.u) - np.asarray(sc.u)).max()
+    assert d > 0, f"{backend}: press_iters=10 should differ from 6"
 
 
 def test_cheby_press_iters_plumbing_3d():
@@ -261,7 +264,7 @@ def test_cheby_press_iters_plumbing_3d():
         make_step_fn_3d,
     )
     kw = dict(n=14, ndim=3, pressure_solver="chebyshev", jacobi_iters=6,
-              backend="reference", max_courant=2, advect_mode="windowed")
+              backend="reference", max_courant=2)
     cfg_a = SimConfig(cheby_iters=4, cheby_press_iters=8, **kw)
     cfg_b = SimConfig(cheby_iters=8, **kw)
     state, src = reference_init(jax.random.key(12), cfg_a)
@@ -273,29 +276,14 @@ def test_cheby_press_iters_plumbing_3d():
             err_msg=name)
 
 
-def test_cheby_max_iters():
-    """The per-CALL sweep clamp: past it ``fused_jacobi`` now chains calls
-    with the cross-call carry instead of raising (round 4), so this is a
-    junction-count predictor, not a feasibility gate."""
-    from fluidsimulationcuda_tpu.kernels.pallas_ops import cheby_max_iters
-    # the measured 8192² clamp (chebyshev-14 there chains 14 = 7 + 7)
-    assert cheby_max_iters(8192) == 7
-    # 2048² must admit the shipped compensated mode (14 pressure sweeps)
-    assert cheby_max_iters(2048) >= 14
-    # sides the strip planner declines entirely report 0 (callers fall back)
-    assert cheby_max_iters(8194) == 0
-    # small grids are whole-grid in VMEM: unclamped
-    assert cheby_max_iters(SIDE) > 100
-
-
 def test_config_validation():
     with pytest.raises(ValueError):
         SimConfig(n=30, pressure_solver="chebyshev", cheby_rho=1.5)
     with pytest.raises(ValueError):
         SimConfig(n=30, diffusion_solver="sor")
     # 3-D velocity diffusion swap: legal ONLY compensated (chebyshev
-    # pressure absorbing the swap's divergence — dev/bench_r3s_3dcomp.py);
-    # an uncompensated 3-D swap has no validated operating point.
+    # pressure absorbing the swap's divergence); an uncompensated 3-D swap
+    # has no validated operating point.
     with pytest.raises(ValueError):
         SimConfig(n=30, ndim=3, diffusion_solver="chebyshev")
     SimConfig(n=30, ndim=3, diffusion_solver="chebyshev",
@@ -325,7 +313,7 @@ def test_compensated_3d_audit_twin_and_engagement():
 
     kw = dict(n=14, ndim=3, jacobi_iters=6, pressure_solver="chebyshev",
               cheby_iters=4, cheby_press_iters=6, backend="reference",
-              max_courant=2, advect_mode="windowed")
+              max_courant=2)
     cfg = SimConfig(diffusion_solver="chebyshev", **kw)
     state, src = reference_init(jax.random.key(13), cfg)
     want = make_step_fn_3d(cfg)(state, src)

@@ -6,19 +6,22 @@ displacement ``d = max |dt*n*velocity|`` satisfies ``d <= cmax``; every
 audit in the repo enforces the strict ``d < cmax``.  These tests sweep a
 controlled uniform displacement across ``cmax-1 .. cmax .. cmax+eps``
 against the EXACT gather (not the windowed jnp spec — both sides of that
-pair clamp identically, which is what the round-2 suite compared) in 2-D
-and 3-D, for both the jnp windowed spec and the interpret-mode Pallas
-kernel.  The compiled-Mosaic twin runs in ``dev/validate_tpu.py``
-(``exactness_boundary`` case).
+pair clamp identically) in 2-D and 3-D, for the jnp windowed spec and for
+the sharded step's windowed advection, whose halo depth the window bounds
+(``parallel/sharded.py``).
 """
 import numpy as np
 import pytest
 
+import functools
+
 import jax
 import jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
 
-from fluidsimulationcuda_tpu.kernels import pallas_ops
 from fluidsimulationcuda_tpu.ops.advect import advect, advect_windowed
+from fluidsimulationcuda_tpu.parallel import sharded
+from fluidsimulationcuda_tpu.parallel.mesh import make_mesh
 from fluidsimulationcuda_tpu.ops.three_d import advect3, advect3_windowed
 
 CMAX = 2
@@ -71,20 +74,23 @@ def test_2d_windowed_clamps_above_cmax(disp):
 @pytest.mark.parametrize("disp", [CMAX - 1.0, CMAX - 0.25, CMAX - 0.001,
                                   float(CMAX)])
 @pytest.mark.parametrize("sign", [1.0, -1.0])
-def test_2d_pallas_kernel_exact_below_and_at_cmax(disp, sign):
-    n = 126  # pallas kernels want side >= 128
-    prev = pallas_ops.INTERPRET
-    pallas_ops.INTERPRET = True
-    try:
-        d0 = _field2(n)
-        u, v = _const_vel2(n, sign * disp)
-        exact = advect(0, d0, u, v, _dt(n), n)
-        ker = pallas_ops.advect_shift(0, d0, u, v, _dt(n), n, cmax=CMAX)
-        np.testing.assert_allclose(
-            np.asarray(exact), np.asarray(ker), rtol=0, atol=1e-6
-        )
-    finally:
-        pallas_ops.INTERPRET = prev
+def test_2d_sharded_windowed_exact_below_and_at_cmax(disp, sign):
+    """The sharded windowed advection on a 2x2 mesh (a (cmax+1)-deep halo
+    exchange instead of an all-gather) equals the exact gather up to the
+    window boundary.  Separate compilations may contract FMAs differently,
+    a 1-ulp shift of the backtrace: ~1e-6 on unit fields."""
+    n = 62
+    d0 = _field2(n)
+    u, v = _const_vel2(n, sign * disp)
+    exact = advect(0, d0, u, v, _dt(n), n)
+    mesh = make_mesh(jax.devices()[:4], (2, 2))
+    f = jax.jit(jax.shard_map(
+        functools.partial(sharded._advect_local_windowed, 0, dtim=_dt(n),
+                          n=n, px=2, py=2, cmax=CMAX),
+        mesh=mesh, in_specs=(P("x", "y"),) * 3, out_specs=P("x", "y"),
+    ))
+    np.testing.assert_allclose(np.asarray(f(d0, u, v)), np.asarray(exact),
+                               rtol=0, atol=1e-5)
 
 
 def _field3(n, seed=1):

@@ -1,12 +1,11 @@
-"""Round-3 multigrid fast path: scatter-free prolongation, deep padded
-hierarchy, Pallas fine-level smoother."""
+"""Multigrid fast path: scatter-free prolongation, graded hierarchy,
+full-precision separable transfers."""
 import numpy as np
 import pytest
 
 import jax
 import jax.numpy as jnp
 
-from fluidsimulationcuda_tpu.kernels import pallas_ops
 from fluidsimulationcuda_tpu.ops.multigrid import (
     _prolong,
     mg_pressure_solve,
@@ -66,7 +65,7 @@ def test_fast_cycle_beats_jacobi20_residual(n):
     )
     p20 = diffuse(0, jnp.zeros_like(div), div, 1.0, 4.0, 20)
     r20 = float(jnp.abs(residual(p20, div)[1:-1, 1:-1]).max())
-    pmg = mg_pressure_solve_fast(div, cycles=2, pallas_smoother=False)
+    pmg = mg_pressure_solve_fast(div, cycles=2)
     rmg = float(jnp.abs(residual(pmg, div)[1:-1, 1:-1]).max())
     assert rmg <= r20, (rmg, r20)
 
@@ -83,58 +82,37 @@ def test_fast_residual_tracks_plain():
         0, jnp.asarray(rng.standard_normal((n, n)).astype(np.float32))
     )
     a = mg_pressure_solve(div, cycles=1)
-    b = mg_pressure_solve_fast(div, cycles=1, pallas_smoother=False)
+    b = mg_pressure_solve_fast(div, cycles=1)
     ra = float(jnp.abs(residual(a, div)[1:-1, 1:-1]).max())
     rb = float(jnp.abs(residual(b, div)[1:-1, 1:-1]).max())
     assert rb <= 2.0 * ra, (rb, ra)
 
 
-def test_pallas_smoother_matches_jnp_smoother():
-    prev = pallas_ops.INTERPRET
-    pallas_ops.INTERPRET = True
-    try:
-        from fluidsimulationcuda_tpu.ops.boundary import embed_interior
+@pytest.mark.parametrize("nf,nc", [(126, 62), (510, 254), (30, 14)])
+def test_transfers_are_full_precision(nf, nc):
+    """The separable transfers run at HIGHEST precision: a GPU would run
+    a DEFAULT float32 matmul in TF32 (~1e-3 relative), which this bound
+    rules out.  Against float64 products of the same matrices."""
+    from fluidsimulationcuda_tpu.ops import multigrid
+    from fluidsimulationcuda_tpu.ops.boundary import embed_interior
+    from fluidsimulationcuda_tpu.ops.multigrid import (
+        _prolong_mat, _restrict_mat, _transfer_1d,
+    )
 
-        n = 126
-        rng = np.random.default_rng(7)
-        div = embed_interior(
-            0, jnp.asarray(rng.standard_normal((n, n)).astype(np.float32))
-        )
-        a = mg_pressure_solve_fast(div, cycles=1, pallas_smoother=False)
-        b = mg_pressure_solve_fast(div, cycles=1, pallas_smoother=True)
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5,
-                                   atol=1e-5)
-    finally:
-        pallas_ops.INTERPRET = prev
+    assert multigrid._TRANSFER_PRECISION == jax.lax.Precision.HIGHEST
 
-
-def test_step_mg_path_engages_pallas_smoother(monkeypatch):
-    """Regression for the round-3 review finding: ``_make_project`` keyed
-    its pallas_smoother sentinel on ``ops.advect_project`` — which is None
-    on EVERY opset (a deliberately-unwired capability) — so ``step()`` with
-    backend='pallas', pressure_solver='multigrid' silently smoothed through
-    the ~10x-slower jnp ``_smooth``.  Pin the discriminator: a pallas opset
-    must reach ``_smooth_pallas``."""
-    prev = pallas_ops.INTERPRET
-    pallas_ops.INTERPRET = True
-    try:
-        from fluidsimulationcuda_tpu.core.config import SimConfig
-        from fluidsimulationcuda_tpu.core.state import reference_init
-        from fluidsimulationcuda_tpu.models.stable_fluids_2d import step
-        from fluidsimulationcuda_tpu.ops import multigrid
-
-        calls = []
-        real = multigrid._smooth_pallas
-
-        def spy(p, div, sweeps, **kw):
-            calls.append(sweeps)
-            return real(p, div, sweeps, **kw)
-
-        monkeypatch.setattr(multigrid, "_smooth_pallas", spy)
-        cfg = SimConfig(n=126, backend="pallas", pressure_solver="multigrid",
-                        mg_cycles=1)
-        state, sources = reference_init(jax.random.key(3), cfg)
-        step(cfg, state, sources)  # trace is enough: the spy records calls
-        assert calls, "pallas opset never reached the Pallas mg smoother"
-    finally:
-        pallas_ops.INTERPRET = prev
+    rng = np.random.default_rng(nf)
+    fine = rng.standard_normal((nf, nf)).astype(np.float32)
+    coarse = rng.standard_normal((nc, nc)).astype(np.float32)
+    P, R = _transfer_1d(nf, nc)
+    P64, R64 = P.astype(np.float64), R.astype(np.float64)
+    got_r = np.asarray(_restrict_mat(embed_interior(0, jnp.asarray(fine)),
+                                     nc))[1:-1, 1:-1]
+    want_r = (nf / nc) ** 2 * (R64 @ fine @ R64.T)
+    np.testing.assert_allclose(got_r, want_r, rtol=0,
+                               atol=1e-5 * np.abs(want_r).max())
+    got_p = np.asarray(_prolong_mat(embed_interior(0, jnp.asarray(coarse)),
+                                    nf))[1:-1, 1:-1]
+    want_p = P64 @ coarse @ P64.T
+    np.testing.assert_allclose(got_p, want_p, rtol=0,
+                               atol=1e-5 * np.abs(want_p).max())

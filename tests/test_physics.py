@@ -28,9 +28,11 @@ and paper from the stencils in ``ops/`` (which transcribe
     velocity (bilinear weights sum to 1; backtrace degenerates to the
     cell itself).
 
-All run on the reference jnp backend, the Pallas kernels (interpret
-mode), and — for diffusion — the NumPy oracle, so a drift in any one
-backend's physics breaks here even if the backends drift together.
+All run on the reference jnp backend, the Jacobi kernel's launch plan
+(``kernel-plan``: every launch as its plain specification, on any device;
+``hopper``: the compiled kernel, on the card), and — for diffusion — the
+NumPy oracle, so a drift in any one backend's physics breaks here even if
+the backends drift together.  Advection runs exact and windowed.
 
 Exceeds ``document/main.tex:349``'s eyeball parity: the reference never
 validates against the math it discretizes.
@@ -41,17 +43,35 @@ import pytest
 import jax.numpy as jnp
 
 from fluidsimulationcuda_tpu import SimConfig
-from fluidsimulationcuda_tpu.kernels import pallas_ops
-from fluidsimulationcuda_tpu.kernels.dispatch import get_ops
+from fluidsimulationcuda_tpu.kernels import hopper_jacobi as hj
+from fluidsimulationcuda_tpu.kernels.dispatch import (
+    get_ops, kernel_ops, reference_ops,
+)
+from fluidsimulationcuda_tpu.ops.advect import advect_windowed
 from fluidsimulationcuda_tpu.oracle import numpy_ref as oracle
 
 N = 30  # interior cells; side 32
+SOLVERS = ["reference", "kernel-plan",
+           pytest.param("hopper", marks=pytest.mark.gpu)]
+GATHERS = ["exact", "windowed"]
 
 
-def _interp_ops(backend):
-    """OpSet for a backend, with Pallas forced through interpret mode."""
-    cfg = SimConfig(n=N, jacobi_iters=20, backend=backend)
-    return get_ops(cfg)
+def _ops(backend, request):
+    """OpSet for a backend: ``kernel-plan`` runs the kernel's launch plan
+    with every launch as its plain specification; ``hopper`` needs the
+    card; ``windowed`` is the reference with the masked-shift gather."""
+    cfg = SimConfig(n=N, jacobi_iters=20, backend="reference",
+                    max_courant=4)
+    if backend == "kernel-plan":
+        return kernel_ops(cfg, launch_fn=hj.reference_launch)
+    if backend == "hopper":
+        request.getfixturevalue("gpu")
+        return get_ops(cfg.replace(backend="hopper"))
+    if backend == "windowed":
+        return reference_ops(cfg)._replace(
+            advect=lambda b, d0, u, v, dt, n: advect_windowed(
+                b, d0, u, v, dt, n, cfg.max_courant))
+    return reference_ops(cfg)
 
 
 def _mode(fam_y, p, fam_x, q, n=N):
@@ -71,7 +91,7 @@ def _mode(fam_y, p, fam_x, q, n=N):
     return m, factor_denom
 
 
-@pytest.mark.parametrize("backend", ["reference", "pallas", "oracle"])
+@pytest.mark.parametrize("backend", SOLVERS + ["oracle"])
 @pytest.mark.parametrize(
     "b,fam_y,fam_x,p,q",
     [
@@ -80,7 +100,7 @@ def _mode(fam_y, p, fam_x, q, n=N):
         (2, "sin", "cos", 4, 2),  # v: no-slip on the y (axis-0) walls
     ],
 )
-def test_diffusion_eigenmode_factor(backend, b, fam_y, fam_x, p, q):
+def test_diffusion_eigenmode_factor(backend, b, fam_y, fam_x, p, q, request):
     """Converged implicit diffusion must scale its boundary-compatible
     eigenmodes by exactly 1/(1 + 4a(sin²(kx/2)+sin²(ky/2)))."""
     alpha = 0.4
@@ -91,21 +111,16 @@ def test_diffusion_eigenmode_factor(backend, b, fam_y, fam_x, p, q):
     if backend == "oracle":
         got = oracle.diffuse(b, m.copy(), m, alpha, beta, iters)
     else:
-        prev = pallas_ops.INTERPRET
-        pallas_ops.INTERPRET = True
-        try:
-            ops = _interp_ops(backend)
-            got = np.asarray(
-                ops.diffuse(b, jnp.asarray(m), jnp.asarray(m), alpha, beta,
-                            iters))
-        finally:
-            pallas_ops.INTERPRET = prev
+        ops = _ops(backend, request)
+        got = np.asarray(
+            ops.diffuse(b, jnp.asarray(m), jnp.asarray(m), alpha, beta,
+                        iters))
     np.testing.assert_allclose(got[1:-1, 1:-1], expected, rtol=2e-4,
                                atol=2e-6)
 
 
-@pytest.mark.parametrize("backend", ["reference", "pallas", "oracle"])
-def test_diffusion_chebyshev_same_eigenmode_factor(backend):
+@pytest.mark.parametrize("backend", SOLVERS + ["oracle"])
+def test_diffusion_chebyshev_same_eigenmode_factor(backend, request):
     """The Chebyshev-accelerated solve targets the SAME fixed point — the
     physics bar applies to the perf solver family, not just parity."""
     from fluidsimulationcuda_tpu.ops.chebyshev import cheby_diffuse
@@ -120,20 +135,15 @@ def test_diffusion_chebyshev_same_eigenmode_factor(backend):
         got = np.asarray(cheby_diffuse(0, jnp.asarray(m), jnp.asarray(m),
                                        alpha, beta, 100, 0.9))
     else:
-        prev = pallas_ops.INTERPRET
-        pallas_ops.INTERPRET = True
-        try:
-            ops = _interp_ops("pallas")
-            got = np.asarray(ops.diffuse(0, jnp.asarray(m), jnp.asarray(m),
-                                         alpha, beta, 100, cheby_rho=0.9))
-        finally:
-            pallas_ops.INTERPRET = prev
+        ops = _ops(backend, request)
+        got = np.asarray(ops.diffuse(0, jnp.asarray(m), jnp.asarray(m),
+                                     alpha, beta, 100, cheby_rho=0.9))
     np.testing.assert_allclose(got[1:-1, 1:-1], expected, rtol=2e-3,
                                atol=2e-5)
 
 
-@pytest.mark.parametrize("backend", ["reference", "pallas", "oracle"])
-def test_diffusion_mode0_conserves_mass(backend, rng):
+@pytest.mark.parametrize("backend", SOLVERS + ["oracle"])
+def test_diffusion_mode0_conserves_mass(backend, rng, request):
     """Interior mass conservation: under the mirror (mode 0) boundary the
     discrete Laplacian's column sums vanish — every edge cell recovers
     its missing neighbor as its own ghost copy — so the converged solve
@@ -148,15 +158,9 @@ def test_diffusion_mode0_conserves_mass(backend, rng):
     if backend == "oracle":
         got = oracle.diffuse(0, x0.copy(), x0, alpha, beta, iters)
     else:
-        prev = pallas_ops.INTERPRET
-        pallas_ops.INTERPRET = True
-        try:
-            ops = _interp_ops(backend)
-            got = np.asarray(ops.diffuse(0, jnp.asarray(x0),
-                                         jnp.asarray(x0), alpha, beta,
-                                         iters))
-        finally:
-            pallas_ops.INTERPRET = prev
+        ops = _ops(backend, request)
+        got = np.asarray(ops.diffuse(0, jnp.asarray(x0), jnp.asarray(x0),
+                                     alpha, beta, iters))
     mass = float(np.sum(np.asarray(got)[1:-1, 1:-1], dtype=np.float64))
     assert abs(mass - mass0) <= 1e-4 * max(1.0, abs(mass0)) + 1e-4
 
@@ -177,22 +181,17 @@ def _solenoidal_field(rng):
     return u.astype(np.float32), v.astype(np.float32)
 
 
-@pytest.mark.parametrize("backend", ["reference", "pallas"])
-def test_projection_identity_on_solenoidal_field(backend, rng):
+@pytest.mark.parametrize("backend", SOLVERS)
+def test_projection_identity_on_solenoidal_field(backend, rng, request):
     """A discretely divergence-free field must pass through the
     projection (divergence → Poisson solve → gradient subtraction)
     essentially unchanged: div ≈ 0 (fp cancellation noise only), so
     p ≈ 0 and the correction vanishes."""
     u, v = _solenoidal_field(rng)
-    prev = pallas_ops.INTERPRET
-    pallas_ops.INTERPRET = True
-    try:
-        ops = _interp_ops(backend)
-        div = np.asarray(ops.divergence(jnp.asarray(u), jnp.asarray(v), N))
-        assert np.abs(div).max() < 1e-7  # exact modulo fp re-association
-        un, vn = ops.project(jnp.asarray(u), jnp.asarray(v), N, 20)
-    finally:
-        pallas_ops.INTERPRET = prev
+    ops = _ops(backend, request)
+    div = np.asarray(ops.divergence(jnp.asarray(u), jnp.asarray(v), N))
+    assert np.abs(div).max() < 1e-7  # exact modulo fp re-association
+    un, vn = ops.project(jnp.asarray(u), jnp.asarray(v), N, 20)
     scale = np.abs(u).max()
     np.testing.assert_allclose(np.asarray(un)[1:-1, 1:-1], u[1:-1, 1:-1],
                                atol=1e-4 * max(scale, 1e-3))
@@ -200,8 +199,8 @@ def test_projection_identity_on_solenoidal_field(backend, rng):
                                atol=1e-4 * max(scale, 1e-3))
 
 
-@pytest.mark.parametrize("backend", ["reference", "pallas"])
-def test_projection_gradient_mode_exact_factor(backend):
+@pytest.mark.parametrize("backend", SOLVERS)
+def test_projection_gradient_mode_exact_factor(backend, request):
     """The converged projection scales a pure-gradient eigenmode field by
     EXACTLY F = 1 − (sx²cx² + sy²cy²)/(sx² + sy²), s=sin(k/2), c=cos(k/2).
 
@@ -226,51 +225,36 @@ def test_projection_gradient_mode_exact_factor(backend):
     sx2, cx2 = np.sin(kx / 2) ** 2, np.cos(kx / 2) ** 2
     sy2, cy2 = np.sin(ky / 2) ** 2, np.cos(ky / 2) ** 2
     F = 1.0 - (sx2 * cx2 + sy2 * cy2) / (sx2 + sy2)
-    prev = pallas_ops.INTERPRET
-    pallas_ops.INTERPRET = True
-    try:
-        ops = _interp_ops(backend)
-        un, vn = ops.project(jnp.asarray(u), jnp.asarray(v), N, 150)
-    finally:
-        pallas_ops.INTERPRET = prev
+    ops = _ops(backend, request)
+    un, vn = ops.project(jnp.asarray(u), jnp.asarray(v), N, 150)
     np.testing.assert_allclose(np.asarray(un)[1:-1, 1:-1],
                                F * u[1:-1, 1:-1], rtol=1e-3, atol=1e-5)
     np.testing.assert_allclose(np.asarray(vn)[1:-1, 1:-1],
                                F * v[1:-1, 1:-1], rtol=1e-3, atol=1e-5)
 
 
-@pytest.mark.parametrize("backend", ["reference", "pallas"])
-def test_advection_constant_field_identity(backend, rng):
+@pytest.mark.parametrize("backend", GATHERS)
+def test_advection_constant_field_identity(backend, rng, request):
     """Semi-Lagrangian bilinear advection of a constant is the constant
     (interpolation weights sum to 1) for ANY advecting velocity."""
     const = 0.7321
     d0 = np.full((N + 2, N + 2), const, np.float32)
     u = (0.5 * rng.standard_normal((N + 2, N + 2))).astype(np.float32)
     v = (0.5 * rng.standard_normal((N + 2, N + 2))).astype(np.float32)
-    prev = pallas_ops.INTERPRET
-    pallas_ops.INTERPRET = True
-    try:
-        ops = _interp_ops(backend)
-        got = np.asarray(ops.advect(0, jnp.asarray(d0), jnp.asarray(u),
-                                    jnp.asarray(v), 0.016, N))
-    finally:
-        pallas_ops.INTERPRET = prev
+    ops = _ops(backend, request)
+    got = np.asarray(ops.advect(0, jnp.asarray(d0), jnp.asarray(u),
+                                jnp.asarray(v), 0.016, N))
     np.testing.assert_allclose(got[1:-1, 1:-1], const, rtol=0, atol=2e-6)
 
 
-@pytest.mark.parametrize("backend", ["reference", "pallas"])
-def test_advection_zero_velocity_identity(backend, rng):
+@pytest.mark.parametrize("backend", GATHERS)
+def test_advection_zero_velocity_identity(backend, rng, request):
     """Zero velocity backtraces every cell to itself — bit-identity on
     the interior."""
     d0 = np.zeros((N + 2, N + 2), np.float32)
     d0[1:-1, 1:-1] = rng.standard_normal((N, N)).astype(np.float32)
     zero = np.zeros_like(d0)
-    prev = pallas_ops.INTERPRET
-    pallas_ops.INTERPRET = True
-    try:
-        ops = _interp_ops(backend)
-        got = np.asarray(ops.advect(0, jnp.asarray(d0), jnp.asarray(zero),
-                                    jnp.asarray(zero), 0.016, N))
-    finally:
-        pallas_ops.INTERPRET = prev
+    ops = _ops(backend, request)
+    got = np.asarray(ops.advect(0, jnp.asarray(d0), jnp.asarray(zero),
+                                jnp.asarray(zero), 0.016, N))
     np.testing.assert_array_equal(got[1:-1, 1:-1], d0[1:-1, 1:-1])

@@ -133,39 +133,6 @@ def test_validation_errors():
 
 
 @pytest.mark.slow
-def test_sharded_pallas_3d_matches_sharded_jnp():
-    # Per-shard Pallas slab kernels (interpret mode) vs the jnp local ops:
-    # same expressions, so parity is exact.  4 shards x 8 planes hosts the
-    # interpret-mode chunk plan (H = K+1 <= mz) and the cmax=1 window.
-    from fluidsimulationcuda_tpu.kernels import pallas_ops
-
-    cfg = _cfg(n=30, max_courant=1, backend="pallas")
-    mesh = _mesh(4)
-    state, src = reference_init(jax.random.key(7), cfg)
-    prev = pallas_ops.INTERPRET
-    pallas_ops.INTERPRET = True
-    try:
-        fp = make_sharded_step_fn_3d(cfg, mesh, advect_mode="windowed",
-                                     shard_backend="pallas")
-        assert fp.shard_backend == "pallas"
-        fj = make_sharded_step_fn_3d(
-            cfg.replace(backend="reference"), mesh,
-            advect_mode="windowed", shard_backend="reference",
-        )
-        sst = shard_state_3d(state, mesh)
-        ssrc = shard_state_3d(src, mesh)
-        out_p = fp(sst, ssrc)
-        out_j = fj(sst, ssrc)
-    finally:
-        pallas_ops.INTERPRET = prev
-    for f in ("dens", "u", "v", "w"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(out_p, f)), np.asarray(getattr(out_j, f)),
-            rtol=0, atol=2e-6, err_msg=f
-        )
-
-
-@pytest.mark.slow
 @pytest.mark.parametrize("dsolver", ["chebyshev", "chebyshev-dens"])
 def test_sharded_3d_compensated_matches_unsharded(dsolver):
     """3-D compensated mode (velocity+dens Chebyshev, compensated
@@ -197,41 +164,6 @@ def test_sharded_3d_cheby_chunked_chain_matches_one_shot():
         np.testing.assert_allclose(
             np.asarray(getattr(sh, f)), np.asarray(getattr(ref, f)),
             rtol=0, atol=1e-6, err_msg=f
-        )
-
-
-@pytest.mark.slow
-def test_sharded_pallas_3d_cheby_matches_sharded_jnp():
-    """Compensated mode through the Pallas slab chain kernels (interpret
-    mode) vs the jnp z-slab locals: fused_cheby3_slab segments with the
-    x_{k-1} carry must match the chunked jnp chain."""
-    from fluidsimulationcuda_tpu.kernels import pallas_ops
-
-    cfg = _cfg(n=30, max_courant=1, backend="pallas",
-               pressure_solver="chebyshev", diffusion_solver="chebyshev",
-               cheby_rho=0.85, cheby_iters=5, cheby_press_iters=6)
-    mesh = _mesh(4)
-    state, src = reference_init(jax.random.key(7), cfg)
-    prev = pallas_ops.INTERPRET
-    pallas_ops.INTERPRET = True
-    try:
-        fp = make_sharded_step_fn_3d(cfg, mesh, advect_mode="windowed",
-                                     shard_backend="pallas")
-        assert fp.shard_backend == "pallas"
-        fj = make_sharded_step_fn_3d(
-            cfg.replace(backend="reference"), mesh,
-            advect_mode="windowed", shard_backend="reference",
-        )
-        sst = shard_state_3d(state, mesh)
-        ssrc = shard_state_3d(src, mesh)
-        out_p = fp(sst, ssrc)
-        out_j = fj(sst, ssrc)
-    finally:
-        pallas_ops.INTERPRET = prev
-    for f in ("dens", "u", "v", "w"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(out_p, f)), np.asarray(getattr(out_j, f)),
-            rtol=0, atol=2e-6, err_msg=f
         )
 
 

@@ -1,10 +1,9 @@
 """Sharded pressure solvers (multigrid / CG) and the sharded audit.
 
-Round-3 additions (VERDICT items 3 & 8): ``pressure_solver="multigrid"/"cg"``
-work inside ``shard_map`` (fine level distributed with 1-halo exchanges,
-coarse multigrid levels psum-replicated; CG is local stencils + psum dot
-products), the sharded step has an audited twin, and the DEFAULT mesh takes
-the Pallas slab path.  Runs on 8 virtual CPU devices (conftest).
+``pressure_solver="multigrid"/"cg"`` work inside ``shard_map`` (fine level
+distributed with 1-halo exchanges, coarse multigrid levels psum-replicated;
+CG is local stencils + psum dot products), and the sharded step has an
+audited twin.  Runs on 8 virtual CPU devices (conftest).
 """
 import functools
 
@@ -21,7 +20,6 @@ from fluidsimulationcuda_tpu import (
     step_audited,
     zero_sources,
 )
-from fluidsimulationcuda_tpu.kernels import pallas_ops
 from fluidsimulationcuda_tpu.parallel.mesh import make_mesh
 from fluidsimulationcuda_tpu.parallel.sharded import (
     make_sharded_step_fn,
@@ -46,8 +44,8 @@ def _run(step_fn, state, sources, zeros, steps):
 def test_sharded_solver_matches_single_device(solver, mesh_shape):
     """Sharded mg/cg on a multi-device mesh vs the SAME sharded algorithm
     on a 1x1 mesh — sharding must not change the result.  (The unsharded
-    step's multigrid is a different algorithm since round 3 — graded
-    MXU-transfer hierarchy vs the distributed classic-halving V-cycle —
+    step's multigrid is a different algorithm — graded matmul-transfer
+    hierarchy vs the distributed classic-halving V-cycle —
     so elementwise equality across the two is not an invariant; solver
     quality is pinned separately by the divergence checks below and in
     test_multigrid.py.)  Not bit-exact even same-algorithm: psum dot
@@ -127,35 +125,6 @@ def test_sharded_cheby_press_iters_plumbing():
             err_msg=name)
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("dsolver", ["chebyshev", "chebyshev-dens"])
-def test_sharded_pallas_path_with_diffusion_solver(dsolver):
-    """Chebyshev diffusion solves run INSIDE the slab kernels on the row
-    mesh (one-call ``fused_jacobi_slab`` with the cheby schedule; the dens
-    solve takes the composed route — the fused dens slab is Jacobi-only)."""
-    prev = pallas_ops.INTERPRET
-    pallas_ops.INTERPRET = True
-    try:
-        cfg = SimConfig(n=30, jacobi_iters=4, backend="pallas",
-                        max_courant=2, diffusion_solver=dsolver,
-                        cheby_iters=5, cheby_dens_iters=5)
-        mesh = make_mesh(jax.devices()[:2], (2, 1))
-        step = make_sharded_step_fn(cfg, mesh, shard_backend="pallas",
-                                    advect_mode="windowed")
-        assert step.shard_backend == "pallas"
-        state, sources = reference_init(jax.random.key(17), cfg)
-        got = step(shard_state(state, mesh), shard_state(sources, mesh))
-        want = _run(make_step_fn(cfg), state, sources, zero_sources(cfg), 1)
-        for name in ("dens", "u", "v"):
-            np.testing.assert_allclose(
-                np.asarray(getattr(got, name)),
-                np.asarray(getattr(want, name)),
-                rtol=2e-5, atol=2e-5, err_msg=f"{dsolver}/{name}",
-            )
-    finally:
-        pallas_ops.INTERPRET = prev
-
-
 def test_sharded_mg_rejects_odd_blocks():
     # side 36 over 8 row-shards -> 4.5 rows: indivisible caught first; use
     # a mesh where blocks divide but are odd: side 36 over (4, 4) -> 9x9.
@@ -179,81 +148,3 @@ def test_sharded_audited_matches_single_device_audit():
     assert np.isfinite(np.asarray(out.dens)).all()
     np.testing.assert_allclose(float(got_disp), float(want_disp),
                                rtol=1e-5, atol=1e-6)
-
-
-@pytest.mark.slow
-def test_default_mesh_takes_pallas_slab_path():
-    """The blessed default: make_mesh with no shape must produce a row mesh
-    on which shard_backend='auto' + backend='pallas' selects the slab
-    kernels (VERDICT round 2, item 3)."""
-    prev = pallas_ops.INTERPRET
-    pallas_ops.INTERPRET = True
-    try:
-        devs = jax.devices()[:8]
-        mesh = make_mesh(devs)
-        assert (mesh.shape["x"], mesh.shape["y"]) == (8, 1)
-        cfg = SimConfig(n=62, jacobi_iters=4, backend="pallas",
-                        max_courant=2)
-        step = make_sharded_step_fn(cfg, mesh, audited=True)
-        assert step.shard_backend == "pallas"
-
-        state, sources = reference_init(jax.random.key(7), cfg)
-        out, disp = step(shard_state(state, mesh),
-                         shard_state(sources, mesh))
-        # Parity vs the unsharded pallas step (same kernels, wall flags on).
-        want = jax.jit(functools.partial(
-            __import__("fluidsimulationcuda_tpu").step, cfg))(state, sources)
-        for name in ("dens", "u", "v"):
-            np.testing.assert_allclose(
-                np.asarray(getattr(out, name)),
-                np.asarray(getattr(want, name)),
-                rtol=1e-6, atol=1e-6, err_msg=name,
-            )
-        assert 0.0 <= float(disp) < cfg.max_courant
-    finally:
-        pallas_ops.INTERPRET = prev
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("solver", ["cg", "multigrid", "chebyshev"])
-def test_sharded_pallas_path_with_solver(solver):
-    """mg/cg compose with the Pallas slab kernels on a row mesh;
-    chebyshev stays INSIDE the slab kernels (one-call fused solve /
-    fused projection with Chebyshev sweeps)."""
-    prev = pallas_ops.INTERPRET
-    pallas_ops.INTERPRET = True
-    try:
-        cfg = SimConfig(n=30, jacobi_iters=4, backend="pallas",
-                        max_courant=2, pressure_solver=solver,
-                        mg_cycles=1, cg_iters=8)
-        mesh = make_mesh(jax.devices()[:2], (2, 1))
-        step = make_sharded_step_fn(cfg, mesh, shard_backend="pallas",
-                                    advect_mode="windowed")
-        assert step.shard_backend == "pallas"
-        state, sources = reference_init(jax.random.key(11), cfg)
-        got = step(shard_state(state, mesh), shard_state(sources, mesh))
-
-        if solver in ("cg", "chebyshev"):
-            # Same algorithm sharded and unsharded — the stronger check.
-            want = _run(make_step_fn(cfg), state, sources,
-                        zero_sources(cfg), 1)
-        else:
-            # Same sharded algorithm on a 1x1 mesh (halo exchange =
-            # self-copy): sharding must not change the result.  The
-            # unsharded step's mg is a different algorithm since r3
-            # (graded MXU-transfer hierarchy), so cross-algorithm
-            # equality is not an invariant for multigrid.
-            mesh1 = make_mesh(jax.devices()[:1], (1, 1))
-            step1 = make_sharded_step_fn(cfg, mesh1,
-                                         shard_backend="pallas",
-                                         advect_mode="windowed")
-            want = step1(shard_state(state, mesh1),
-                         shard_state(sources, mesh1))
-        for name in ("dens", "u", "v"):
-            np.testing.assert_allclose(
-                np.asarray(getattr(got, name)),
-                np.asarray(getattr(want, name)),
-                rtol=2e-5, atol=2e-5, err_msg=f"{solver}/{name}",
-            )
-    finally:
-        pallas_ops.INTERPRET = prev
